@@ -1,0 +1,243 @@
+"""INT8 KV-cache insert (K3) and GQA decode attention (K4), with their
+plain PyTorch versions.
+
+Counterpart of `gguf_tpu/ops/attention.py`: `kv_cache_insert` (Pallas
+`_insert_kernel`), `decode_attention` (`_attn_kernel`) and
+`decode_attention_update` (the split pair, or `_fused_attn_kernel` at
+t = 1). The CUDA source is `gguf_tpu_torch/csrc/attention.cu`.
+
+Layouts match the reference: q (B, H, t, hd); new K/V rows (B, KVH, t, hd)
+float32; the cache k/v (B, KVH, S, hd) int8 with per-row float32 scales
+(B, KVH, S); pos (B,) int32, the position of each sequence's first new
+token. The cache is updated IN PLACE (the JAX package aliases the same
+buffers); the functions return the cache tensors they were given.
+
+Quantization is per (token, head) row and bit-identical to the reference
+as XLA compiles it (`gguf_tpu/models/llama.py:_quantize_kv` and the Pallas
+inserts under jit): scale = absmax * f32(1/127) — XLA turns the division
+by the constant 127 into that product, and for a bf16 row it keeps absmax
+and the scale in f32 — then codes = clip(rint(x / scale), ±127) with an
+IEEE division and round-half-to-even. A position outside [0, S) writes
+nothing: inactive engine slots step at pos = max_seq.
+
+`kv_cache_insert.launches` counts K3 launches and
+`decode_attention.launches` counts K4 launches, whether K4 runs read-only
+or with its fused t = 1 insert.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+RECIP_127 = float(torch.tensor(1 / 127, dtype=torch.float32))
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIG = {
+    "kv_cache_insert_launch": [_VP] * 7 + [_I] * 5 + [_VP],
+    "decode_attention_launch": [_VP] * 9 + [_I] * 7 + [_F, _F, _I, _I, _VP],
+}
+HEAD_DIMS = (64, 128)
+
+
+def quantize_kv(x: torch.Tensor):
+    """(..., hd) f32 or bf16 -> int8 codes + per-row float32 scales."""
+    scale = x.abs().amax(dim=-1).float() * RECIP_127
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(x.float() / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _lib():
+    return build.load("attention", _SIG)
+
+
+def _check_cache(k, k_scale, v, v_scale, pos):
+    b, kvh, s, hd = k.shape
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError("the KV cache is int8")
+    if v.shape != k.shape or k_scale.shape != (b, kvh, s) \
+            or v_scale.shape != (b, kvh, s):
+        raise ValueError("cache and scale shapes disagree")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError("cache scales are float32")
+    if pos.shape != (b,):
+        raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
+    for t in (k, k_scale, v, v_scale):
+        if not t.is_contiguous():
+            raise ValueError("the KV cache must be contiguous")
+    _check_device(k, k_scale, v, v_scale, pos)
+    return b, kvh, s, hd
+
+
+def _check_device(ref, *tensors):
+    if any(t.device != ref.device for t in tensors):
+        raise ValueError(f"all operands must be on {ref.device}, got "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def _check_new(new, b, kvh, t, hd):
+    if new.shape != (b, kvh, t, hd):
+        raise ValueError(f"new rows {tuple(new.shape)} != {(b, kvh, t, hd)}")
+
+
+# ------------------------------------------------------------- K3: insert ---
+
+
+def kv_cache_insert_plain(k_new, v_new, k, k_scale, v, v_scale, pos):
+    """Plain version of K3: quantize and write rows pos..pos+t-1 per
+    sequence, skipping rows outside [0, S)."""
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
+    t = k_new.shape[2]
+    qk, sk = quantize_kv(k_new.float())
+    qv, sv = quantize_kv(v_new.float())
+    rows = pos.to(torch.long)[:, None] + torch.arange(t, device=pos.device)
+    for bi, r in enumerate(rows.tolist()):
+        for tj, row in enumerate(r):
+            if 0 <= row < s:
+                k[bi, :, row] = qk[bi, :, tj]
+                k_scale[bi, :, row] = sk[bi, :, tj]
+                v[bi, :, row] = qv[bi, :, tj]
+                v_scale[bi, :, row] = sv[bi, :, tj]
+    return k, k_scale, v, v_scale
+
+
+def kv_cache_insert(k_new, v_new, k, k_scale, v, v_scale, pos):
+    """Quantize t new K/V rows per sequence (scale = absmax * f32(1/127),
+    codes by exact division and round half to even) and write them in
+    place at pos..pos+t-1. Returns the cache tensors."""
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
+    t = k_new.shape[2]
+    _check_new(k_new, b, kvh, t, hd)
+    _check_new(v_new, b, kvh, t, hd)
+    _check_device(k, k_new, v_new)
+    if k.device.type == "cpu":
+        return kv_cache_insert_plain(k_new, v_new, k, k_scale, v, v_scale, pos)
+    if k.device.type != "cuda" or hd not in HEAD_DIMS:
+        raise ValueError(f"kv_cache_insert: cuda with hd in {HEAD_DIMS}, "
+                         f"got {k.device} hd={hd}")
+    kn = k_new.float().contiguous()
+    vn = v_new.float().contiguous()
+    p = pos.to(torch.int32).contiguous()
+    err = _lib().kv_cache_insert_launch(
+        build.ptr(kn), build.ptr(vn), build.ptr(k), build.ptr(k_scale),
+        build.ptr(v), build.ptr(v_scale), build.ptr(p), b, kvh, t, s, hd,
+        build.stream_ptr())
+    build.check(err, "kv_cache_insert")
+    kv_cache_insert.launches += 1
+    return k, k_scale, v, v_scale
+
+
+kv_cache_insert.launches = 0
+
+
+# ---------------------------------------------------------- K4: attention ---
+
+
+def decode_attention_plain(q, k, k_scale, v, v_scale, pos, *, t: int,
+                           precision: str = "fast", span: int | None = None,
+                           window: int = 0, softcap: float = 0.0):
+    """Plain version of K4 (read-only): the reference kernel's math —
+    scores (q·k)·(k_scale/√hd), optional softcap, causal (and window)
+    mask, f32 softmax, then (p·v_scale) rounded to the operand type
+    times v. Returns (B, H, t, hd) float32."""
+    b, h, _, hd = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    g = h // kvh
+    span = s if span is None else min(span, s)
+    dt = torch.bfloat16 if precision == "fast" else torch.float32
+    qr = q.reshape(b, kvh, g * t, hd).to(dt).float()
+    scores = qr @ k[:, :, :span].float().transpose(-1, -2)
+    scores = scores * (k_scale[:, :, None, :span] * (1.0 / hd ** 0.5))
+    if softcap:
+        scores = softcap * torch.tanh(scores * (1.0 / softcap))
+    tok = torch.arange(g * t, device=q.device) % t
+    col = torch.arange(span, device=q.device)
+    lim = pos.to(torch.long)[:, None, None, None] + tok[None, None, :, None]
+    live = col <= lim
+    if window:
+        live = live & (col > lim - window)
+    scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    pv = (p * v_scale[:, :, None, :span]).to(dt).float()
+    out = pv @ v[:, :, :span].float()
+    return out.reshape(b, h, t, hd)
+
+
+def _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *, t,
+                 precision, span, window, softcap):
+    """Launch K4; with k_new/v_new given (t = 1) the block first inserts
+    its own head's new row, then attends over the updated cache."""
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
+    h = q.shape[1]
+    _check_device(k, q, *(() if k_new is None else (k_new, v_new)))
+    if q.shape != (b, h, t, hd) or h % kvh:
+        raise ValueError(f"q {tuple(q.shape)} vs cache {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: hd must be in {HEAD_DIMS}, got {hd}")
+    if (h // kvh) * t * hd * 4 > 48 * 1024:
+        raise ValueError("decode_attention: g*t*hd exceeds the query tile")
+    span = s if span is None else min(span, s)
+    qf = q.float().contiguous()
+    p = pos.to(torch.int32).contiguous()
+    insert = k_new is not None
+    if insert:
+        kn, vn = k_new.float().contiguous(), v_new.float().contiguous()
+    else:
+        kn = vn = qf     # unused by the kernel
+    out = torch.empty((b, h, t, hd), dtype=torch.float32, device=q.device)
+    err = _lib().decode_attention_launch(
+        build.ptr(qf), build.ptr(kn), build.ptr(vn), build.ptr(k),
+        build.ptr(k_scale), build.ptr(v), build.ptr(v_scale), build.ptr(p),
+        build.ptr(out), b, kvh, h // kvh, t, s, span, hd,
+        1.0 / hd ** 0.5, float(softcap), int(window),
+        int(precision == "fast") | (2 if insert else 0), build.stream_ptr())
+    build.check(err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k, k_scale, v, v_scale, pos, *, t: int,
+                     precision: str = "fast", span: int | None = None,
+                     window: int = 0, softcap: float = 0.0):
+    """GQA attention of t new tokens per sequence over the first `span`
+    cache rows (their K/V already inserted). Returns (B, H, t, hd) f32."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, k_scale, v, v_scale, pos, t=t,
+                                      precision=precision, span=span,
+                                      window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+    return _attend_cuda(q, None, None, k, k_scale, v, v_scale, pos, t=t,
+                        precision=precision, span=span, window=window,
+                        softcap=softcap)
+
+
+decode_attention.launches = 0
+
+
+def decode_attention_update(q, k_new, v_new, k, k_scale, v, v_scale, pos,
+                            *, t: int, precision: str = "fast",
+                            span: int | None = None, window: int = 0,
+                            softcap: float = 0.0):
+    """Insert t new K/V rows, then attend: (out, k, k_scale, v, v_scale).
+    On the card t = 1 is ONE K4 launch (insert fused in); t > 1 is K3 then
+    K4."""
+    if q.device.type == "cuda" and t == 1:
+        b, kvh, _, hd = k.shape
+        _check_new(k_new, b, kvh, 1, hd)
+        _check_new(v_new, b, kvh, 1, hd)
+        out = _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos,
+                           t=1, precision=precision, span=span,
+                           window=window, softcap=softcap)
+        return out, k, k_scale, v, v_scale
+    kv_cache_insert(k_new, v_new, k, k_scale, v, v_scale, pos)
+    out = decode_attention(q, k, k_scale, v, v_scale, pos, t=t,
+                           precision=precision, span=span, window=window,
+                           softcap=softcap)
+    return out, k, k_scale, v, v_scale

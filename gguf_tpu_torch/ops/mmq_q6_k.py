@@ -1,0 +1,83 @@
+"""Fused dequantize+matmul for Q6_K weights: kernel K2 and its plain version.
+
+Same contract as `mmq_q4_k` (output (N, M) float32, "fast" = bf16-rounded
+operands with f32 accumulation) for Q6_K weights, whose element value is
+d * scale16 * (q - 32) with q = ql nibble | qh crumb << 4. Counterpart of
+`gguf_tpu/ops/mmq_q6_k.py:mmq_q6_k` (Pallas `_kernel_ink` and `_kernel`);
+the CUDA source is `gguf_tpu_torch/csrc/mmq_q6_k.cu`. It reads the
+per-field arrays `QuantWeight` splits Q6_K's 210-byte blocks into.
+
+On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
+tensor it launches K2 or raises. `mmq_q6_k.launches` counts K2 launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..quant.layouts import QK_K, QuantWeight
+from . import build
+from .mmq_q4_k import check_operands, matmul_plain
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_SIG = {"mmq_q6_k_launch": [_VP] * 6 + [_I] * 6 + [_VP]}
+
+
+def dequantize_q6_k_plain(w: QuantWeight) -> torch.Tensor:
+    """(M, K) float32 in torch ops on the weight's device; same op order as
+    `gguf_tpu.quant.dequantize_q6_k` ((d*scale) * (q-32)), so bit-equal."""
+    m, k = w.shape
+    sb = k // QK_K
+    f = w.fields
+    ql = f["ql"].view(m, sb, 2, 2, 32).int()        # (half, slot, byte)
+    qh = f["qh"].view(m, sb, 2, 1, 32).int()
+    low4 = torch.cat([ql & 15, ql >> 4], dim=3).view(m, sb, QK_K)
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32,
+                          device=ql.device).view(1, 1, 1, 4, 1)
+    hi2 = ((qh >> shifts) & 3).view(m, sb, QK_K)
+    q = ((low4 | (hi2 << 4)) - 32).float().view(m, sb, 16, 16)
+    scales = f["sc"].view(torch.int8).view(m, sb, 16).float()
+    d = f["d"].view(m, sb, 2).view(torch.float16).float()
+    return ((d * scales)[..., None] * q).view(m, k)
+
+
+def mmq_q6_k_plain(w: QuantWeight, b: torch.Tensor, *,
+                   precision: str = "high") -> torch.Tensor:
+    """Plain PyTorch version of K2 (any device)."""
+    check_operands(w, b, "q6_k", None)
+    return matmul_plain(b.float(), dequantize_q6_k_plain(w), precision)
+
+
+def _lib():
+    return build.load("mmq_q6_k", _SIG)
+
+
+def mmq_q6_k(w: QuantWeight, b: torch.Tensor, *,
+             precision: str = "high") -> torch.Tensor:
+    """C = (A @ B.T).T for Q6_K weights A (M, K) and B (N, K); (N, M) f32."""
+    if precision not in ("fast", "high"):
+        raise ValueError(f"precision must be 'fast' or 'high', got {precision!r}")
+    if b.device.type == "cpu":
+        return mmq_q6_k_plain(w, b, precision=precision)
+    if b.device.type != "cuda":
+        raise ValueError(f"mmq_q6_k runs on cpu or cuda, not {b.device}")
+    k = check_operands(w, b, "q6_k", None)
+    m, n = w.shape[0], b.shape[0]
+    b = b.contiguous()
+    f = w.fields
+    out = torch.empty((n, m), dtype=torch.float32, device=b.device)
+    if n == 0:
+        return out
+    err = _lib().mmq_q6_k_launch(
+        build.ptr(f["ql"]), build.ptr(f["qh"]), build.ptr(f["sc"]),
+        build.ptr(f["d"]), build.ptr(b), build.ptr(out), m, n, k,
+        b.shape[1], int(b.dtype == torch.bfloat16), int(precision == "fast"),
+        build.stream_ptr())
+    build.check(err, "mmq_q6_k")
+    mmq_q6_k.launches += 1
+    return out
+
+
+mmq_q6_k.launches = 0

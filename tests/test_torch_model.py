@@ -1,0 +1,153 @@
+"""The port's checkpoint writer, loader and Llama forward held against the
+JAX package: byte-identical files, identical loaded tensors, and logits
+within tolerance for prefill chunks and continuous-batching decode steps."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gguf_tpu.models import forward as jax_forward
+from gguf_tpu.models import fuse_llama_params as jax_fuse
+from gguf_tpu.models import init_kv_cache as jax_init_cache
+from gguf_tpu.models import load_llama as jax_load_llama
+from gguf_tpu.models import write_random_llama_gguf as jax_write
+from gguf_tpu.models import LlamaConfig as JaxLlamaConfig
+from gguf_tpu.models import MMOpts as JaxMMOpts
+from gguf_tpu.quant.layouts import QuantTensor, from_soa
+from gguf_tpu_torch.models import (LlamaConfig, MMOpts, forward,
+                                   fuse_llama_params, init_kv_cache,
+                                   load_llama, params_from_jax,
+                                   write_random_llama_gguf)
+from gguf_tpu_torch.quant import QuantWeight
+
+SHAPE = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+             ffn_dim=512, max_seq_len=256)
+CFG = LlamaConfig(**SHAPE)
+S = 256
+# logits: the bf16 residual stream carries last-ulp differences (silu,
+# cos, sin, summation order) through both layers
+TOL = 1e-2
+
+
+def jax_params_as_numpy(params):
+    """Reference params with QuantTensors as (fmt, GGUF bytes, (M, K))."""
+    def conv(v):
+        if isinstance(v, QuantTensor):
+            return (v.fmt, from_soa(v), v.shape)
+        return np.asarray(v)
+
+    return {k: ([{n: conv(w) for n, w in layer.items()} for layer in v]
+                if k == "layers" else conv(v)) for k, v in params.items()}
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("torch_model") / "tiny.gguf")
+    write_random_llama_gguf(path, CFG, seed=1)
+    jcfg, jparams = jax_load_llama(path)
+    cfg, params = load_llama(path, "cpu")
+    return path, (jcfg, jax_fuse(jparams), jparams), (cfg, params)
+
+
+@pytest.fixture(scope="module")
+def jax_fwd():
+    return jax.jit(jax_forward, static_argnames=("cfg", "opts", "span"))
+
+
+def test_writer_byte_identical_to_jax(tmp_path):
+    a, b = str(tmp_path / "port.gguf"), str(tmp_path / "jax.gguf")
+    write_random_llama_gguf(a, CFG, seed=7)
+    jax_write(b, JaxLlamaConfig(**SHAPE), seed=7)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
+
+def _assert_same(got, ref, where):
+    if isinstance(ref, QuantWeight):
+        assert isinstance(got, QuantWeight), where
+        assert (got.fmt, got.shape) == (ref.fmt, ref.shape), where
+        for name in ref.fields:
+            assert torch.equal(got.fields[name], ref.fields[name]), where
+    else:
+        assert got.dtype == ref.dtype and torch.equal(got, ref), where
+
+
+def test_loader_matches_converted_jax_params(models):
+    _, (_, _, jparams), (cfg, params) = models
+    conv = params_from_jax(jax_params_as_numpy(jparams), cfg, "cpu")
+    assert conv.keys() == params.keys()
+    for key in ("token_embd", "output", "output_norm"):
+        _assert_same(conv[key], params[key], key)
+    assert params["output"].fmt == "q6_k"
+    for i, (lc, lp) in enumerate(zip(conv["layers"], params["layers"])):
+        assert lc.keys() == lp.keys()
+        for key in lp:
+            _assert_same(lc[key], lp[key], (i, key))
+
+
+def _assert_logits_close(got, ref):
+    ref = np.asarray(ref)
+    got = got.numpy()
+    assert got.shape == ref.shape
+    assert np.isfinite(got).all()
+    err = np.max(np.abs(got - ref))
+    assert err <= TOL * np.max(np.abs(ref)), (err, np.max(np.abs(ref)))
+
+
+@pytest.mark.parametrize("t", [8, 16, 40])
+def test_prefill_logits_match_jax(models, jax_fwd, t):
+    _, (jcfg, jfused, _), (cfg, params) = models
+    tokens = np.random.default_rng(t).integers(0, CFG.vocab_size, (1, t))
+    ref, _ = jax_fwd(jfused, jcfg, jnp.asarray(tokens, jnp.int32),
+                     jnp.zeros(1, jnp.int32), jax_init_cache(jcfg, 1, S),
+                     opts=JaxMMOpts(), span=128)
+    got, _ = forward(fuse_llama_params(params), cfg,
+                     torch.from_numpy(tokens), torch.zeros(1, dtype=torch.int32),
+                     init_kv_cache(cfg, 1, S, "cpu"), MMOpts(), span=128)
+    _assert_logits_close(got, ref)
+
+
+def test_decode_steps_with_per_slot_positions_match_jax(models, jax_fwd):
+    """Batch 4: a joint 40-token prefill, then 4 decode steps with the slots
+    at different depths (continuous batching)."""
+    _, (jcfg, jfused, _), (cfg, params) = models
+    fused = fuse_llama_params(params)
+    rng = np.random.default_rng(11)
+    pre = rng.integers(0, CFG.vocab_size, (4, 40))
+    jcache = jax_init_cache(jcfg, 4, S)
+    cache = init_kv_cache(cfg, 4, S, "cpu")
+    _, jcache = jax_fwd(jfused, jcfg, jnp.asarray(pre, jnp.int32),
+                        jnp.zeros(4, jnp.int32), jcache, opts=JaxMMOpts(),
+                        span=128)
+    forward(fused, cfg, torch.from_numpy(pre), torch.zeros(4, dtype=torch.int32),
+            cache, MMOpts(), span=128)
+    pos = np.array([40, 31, 17, 38], np.int32)
+    for _ in range(4):
+        tok = rng.integers(0, CFG.vocab_size, (4, 1))
+        ref, jcache = jax_fwd(jfused, jcfg, jnp.asarray(tok, jnp.int32),
+                              jnp.asarray(pos), jcache, opts=JaxMMOpts(),
+                              span=128)
+        got, cache = forward(fused, cfg, torch.from_numpy(tok),
+                             torch.from_numpy(pos), cache, MMOpts(), span=128)
+        _assert_logits_close(got, ref)
+        pos = pos + 1
+
+
+def test_fused_params_keep_logits(models):
+    """QKV and gate/up concatenation is a pure relayout: with the GLU
+    fusion off the fused and unfused params give identical logits."""
+    _, _, (cfg, params) = models
+    fused = fuse_llama_params(params)
+    assert "wqkv" in fused["layers"][0] and "gate_up" in fused["layers"][0]
+    assert isinstance(fused["token_embd"], torch.Tensor)   # dequantized
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 5)))
+    pos = torch.zeros(2, dtype=torch.int32)
+    opts = MMOpts(fuse_glu=False)
+    a, _ = forward(params, cfg, tokens, pos, init_kv_cache(cfg, 2, S, "cpu"),
+                   opts)
+    b, _ = forward(fused, cfg, tokens, pos, init_kv_cache(cfg, 2, S, "cpu"),
+                   opts)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
