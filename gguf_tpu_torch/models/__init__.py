@@ -4,10 +4,10 @@ from .config import LlamaConfig
 from .convert import params_from_jax
 from .llama import (MMOpts, forward, fuse_llama_params, init_kv_cache,
                     linear)
-from .loader import load_llama, write_random_llama_gguf
+from .loader import GGMLType, load_llama, write_random_llama_gguf
 
 __all__ = [
-    "LlamaConfig", "MMOpts", "forward", "fuse_llama_params",
+    "GGMLType", "LlamaConfig", "MMOpts", "forward", "fuse_llama_params",
     "init_kv_cache", "linear", "load_llama", "params_from_jax",
     "write_random_llama_gguf",
 ]

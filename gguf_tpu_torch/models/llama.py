@@ -30,10 +30,12 @@ from .config import LlamaConfig
 
 
 class MMOpts(NamedTuple):
-    """Knobs threaded to every MMQ call. The reference's TPU tile and
-    sharding knobs have no counterpart here; its `act_quant` (Q8_1
-    activations) is not ported yet (ROADMAP.md, queue 1 item 3)."""
+    """Knobs threaded to every MMQ call. `act_quant` feeds Q8_1-quantized
+    activations (llama.cpp's MMQ numerics; with precision "high", the
+    integer contract at n <= 16). The reference's TPU tile and sharding
+    knobs have no counterpart here."""
     precision: str = "fast"
+    act_quant: bool = False
     fuse_glu: bool = True
 
 
@@ -41,7 +43,8 @@ def linear(w, x: torch.Tensor, opts: MMOpts = MMOpts()) -> torch.Tensor:
     """y = x @ W^T for W (out, in): the MMQ kernel for a QuantWeight, a
     plain f32-accumulated product for float weights; cast to x.dtype."""
     if isinstance(w, QuantWeight):
-        return MMQ[w.fmt](w, x, precision=opts.precision).to(x.dtype)
+        return MMQ[w.fmt](w, x, precision=opts.precision,
+                          act_quant=opts.act_quant).to(x.dtype)
     return (x.float() @ w.to(x.dtype).float().T).to(x.dtype)
 
 
@@ -205,7 +208,9 @@ def attention(layer, x, cfg: LlamaConfig, cache_l: dict, pos, opts: MMOpts,
 
 def mlp(layer, x, opts: MMOpts, act_fn: str = "silu"):
     """Gated MLP; with fused gate_up and a Q4_K down weight, the GLU runs
-    inside the down kernel (h = act(gate) * up in f32)."""
+    inside the down kernel (h = act(gate) * up in f32; under act_quant
+    inside the Q8_1 quantizer that feeds it). Other down weights take
+    act(gate) rounded to bf16, times up."""
     b, t, _ = x.shape
     xf = x.reshape(b * t, -1)
     if "gate_up" in layer:
@@ -215,7 +220,8 @@ def mlp(layer, x, opts: MMOpts, act_fn: str = "silu"):
                 and down_w.fmt == "q4_k" and act_fn in ("silu", "gelu")
                 and gu.shape[-1] == 2 * down_w.shape[1]):
             down = MMQ["q4_k"](down_w, gu, precision=opts.precision,
-                               glu=act_fn).to(x.dtype)
+                               glu=act_fn, act_quant=opts.act_quant
+                               ).to(x.dtype)
             return down.reshape(b, t, -1)
         g, u = gu.chunk(2, dim=-1)
     else:

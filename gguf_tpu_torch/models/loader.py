@@ -85,7 +85,8 @@ def load_llama(path: str, device):
 def write_random_llama_gguf(path: str, cfg: LlamaConfig,
                             fmt: GGMLType = GGMLType.Q4_K, seed: int = 0,
                             extra_metadata: dict | None = None) -> None:
-    """Write a random llama-architecture GGUF (tests, smoke runs).
+    """Write a random llama-architecture GGUF (tests, smoke runs); `fmt`
+    is a `GGMLType` (re-exported by `gguf_tpu_torch.models`).
 
     Byte-identical to `gguf_tpu.models.write_random_llama_gguf(path, cfg,
     fmt, seed, extra_metadata)` with arch "llama": the same generator

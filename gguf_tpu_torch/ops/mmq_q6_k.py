@@ -6,6 +6,8 @@ d * scale16 * (q - 32) with q = ql nibble | qh crumb << 4. Counterpart of
 `gguf_tpu/ops/mmq_q6_k.py:mmq_q6_k` (Pallas `_kernel_ink` and `_kernel`);
 the CUDA source is `gguf_tpu_torch/csrc/mmq_q6_k.cu`. It reads the
 per-field arrays `QuantWeight` splits Q6_K's 210-byte blocks into.
+`act_quant=True` fake-quantizes the activations to Q8_1 first (K6) at
+any width, as the JAX package does (default False, see `mmq_q4_k`).
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches K2 or raises. `mmq_q6_k.launches` counts K2 launches.
@@ -19,7 +21,8 @@ import torch
 
 from ..quant.layouts import QK_K, QuantWeight
 from . import build
-from .mmq_q4_k import check_operands, matmul_plain
+from .activation import fake_quant_2d
+from .mmq_q4_k import check_operands, check_precision, matmul_plain
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"mmq_q6_k_launch": [_VP] * 6 + [_I] * 6 + [_VP]}
@@ -54,16 +57,17 @@ def _lib():
     return build.load("mmq_q6_k", _SIG)
 
 
-def mmq_q6_k(w: QuantWeight, b: torch.Tensor, *,
-             precision: str = "high") -> torch.Tensor:
+def mmq_q6_k(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
+             act_quant: bool = False) -> torch.Tensor:
     """C = (A @ B.T).T for Q6_K weights A (M, K) and B (N, K); (N, M) f32."""
-    if precision not in ("fast", "high"):
-        raise ValueError(f"precision must be 'fast' or 'high', got {precision!r}")
+    check_precision(precision)
+    k = check_operands(w, b, "q6_k", None)
+    if act_quant:
+        b = fake_quant_2d(b, k, None)
     if b.device.type == "cpu":
         return mmq_q6_k_plain(w, b, precision=precision)
     if b.device.type != "cuda":
         raise ValueError(f"mmq_q6_k runs on cpu or cuda, not {b.device}")
-    k = check_operands(w, b, "q6_k", None)
     m, n = w.shape[0], b.shape[0]
     b = b.contiguous()
     f = w.fields

@@ -6,7 +6,8 @@ structure-of-arrays "planes" so each field is a 128-lane tile; a CUDA
 kernel reads the interleaved GGUF blocks directly, so the port keeps them
 as stored: one (M, K/256*bytes) uint8 row per output feature.
 
-Q4_K's 144-byte block is 16-byte aligned and stays whole. Q6_K's 210-byte
+Q4_K's 144-byte and Q5_K's 176-byte blocks are 16-byte aligned and stay
+whole. Q6_K's 210-byte
 block is not 4-byte aligned, so it is split at load into per-field arrays
 (ql, qh, scales, d), each a (M, K/256*field_bytes) uint8 tensor whose rows
 keep the GGUF byte order; `blocks()` reassembles the exact file bytes.
@@ -20,16 +21,18 @@ import numpy as np
 import torch
 
 QK_K = 256
-BLOCK_BYTES = {"q4_k": 144, "q6_k": 210}
+BLOCK_BYTES = {"q4_k": 144, "q5_k": 176, "q6_k": 210}
 # (field, first byte, end byte) of one Q6_K superblock (gguf_tpu/quant/q6_k.py)
 Q6K_FIELDS = (("ql", 0, 128), ("qh", 128, 192), ("sc", 192, 208),
               ("d", 208, 210))
 
 
 def _codec(fmt: str):
-    from gguf_tpu.quant import dequantize_q4_k, dequantize_q6_k
+    from gguf_tpu.quant import (dequantize_q4_k, dequantize_q5_k,
+                                dequantize_q6_k)
 
-    codecs = {"q4_k": dequantize_q4_k, "q6_k": dequantize_q6_k}
+    codecs = {"q4_k": dequantize_q4_k, "q5_k": dequantize_q5_k,
+              "q6_k": dequantize_q6_k}
     if fmt not in codecs:
         raise NotImplementedError(
             f"{fmt} weights are not ported yet (ROADMAP.md, queue 2)")

@@ -1,6 +1,7 @@
 """The port's continuous-batching engine held against the JAX package's
-`LLM.generate` (greedy tokens), its sampler, and the import boundary: the
-port runs with jax made unimportable."""
+`LLM.generate` (greedy tokens, with bf16 and with Q8_1 activations), its
+sampler, and the import boundary: the port runs with jax made
+unimportable."""
 
 import os
 import re
@@ -16,14 +17,16 @@ import jax.numpy as jnp
 from gguf_tpu.engine import LLM as JaxLLM
 from gguf_tpu.models import forward as jax_forward
 from gguf_tpu.models import init_kv_cache as jax_init_cache
+from gguf_tpu.models import MMOpts as JaxMMOpts
 from gguf_tpu_torch.engine import LLM, SamplerConfig, sample
-from gguf_tpu_torch.models import LlamaConfig, write_random_llama_gguf
+from gguf_tpu_torch.models import LlamaConfig, MMOpts, write_random_llama_gguf
 
 CFG = LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4,
                   n_kv_heads=2, ffn_dim=512, max_seq_len=256)
 PROMPT_LENS = (3, 8, 12, 20, 40, 70)
 NEW = 16
 FORWARD_TOL = 1e-2          # tests/test_torch_model.py: logits vs max|ref|
+FORWARD_TOL_ACT_QUANT = 3e-2   # the same file's act_quant bound
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -34,23 +37,26 @@ def checkpoint(tmp_path_factory):
     return path
 
 
-def test_greedy_generate_matches_jax(checkpoint):
-    """6 prompts over 4 slots (continuous batching), 16 greedy tokens each.
-    Tokens must agree up to the first step whose reference top-2 logit gap
-    is inside the forward tolerance, where bf16 ties may break either way."""
-    rng = np.random.default_rng(0)
+def _greedy_parity(checkpoint, jopts, opts, tol, prompt_lens, seed=0):
+    """Greedy tokens of the port against the JAX LLM over 4 slots
+    (continuous batching), NEW tokens per prompt. Tokens must agree up to
+    the first step whose reference top-2 logit gap is inside the forward
+    tolerance, where ties may break either way. Returns the number of
+    steps compared."""
+    rng = np.random.default_rng(seed)
     prompts = [[int(x) for x in rng.integers(0, CFG.vocab_size, n)]
-               for n in PROMPT_LENS]
-    jllm = JaxLLM(checkpoint, max_batch=4, max_seq=256, prefix_cache=False)
+               for n in prompt_lens]
+    jllm = JaxLLM(checkpoint, max_batch=4, max_seq=256, prefix_cache=False,
+                  opts=jopts)
     ref = jllm.generate(prompts, max_new_tokens=NEW, logprobs=2)
     logits, _ = jax_forward(jllm.params, jllm.cfg,
                             jnp.asarray([prompts[-1]], jnp.int32),
                             jnp.zeros(1, jnp.int32),
                             jax_init_cache(jllm.cfg, 1, 256))
-    gap_tol = FORWARD_TOL * float(jnp.abs(logits).max())
+    gap_tol = tol * float(jnp.abs(logits).max())
 
-    got = LLM(checkpoint, max_batch=4, max_seq=256, device="cpu").generate(
-        prompts, max_new_tokens=NEW)
+    got = LLM(checkpoint, max_batch=4, max_seq=256, device="cpu",
+              opts=opts).generate(prompts, max_new_tokens=NEW)
     compared = 0
     for i, (r, g) in enumerate(zip(ref, got)):
         assert len(g.token_ids) == NEW and g.finished
@@ -62,6 +68,25 @@ def test_greedy_generate_matches_jax(checkpoint):
                   f"{gap_tol:.4f} at step {n}; comparing steps 0..{n - 1}")
         assert g.token_ids[:n] == r.token_ids[:n], (i, n)
         compared += n
+    return compared
+
+
+def test_greedy_generate_matches_jax(checkpoint):
+    """6 prompts over 4 slots, 16 greedy tokens each, bf16 activations."""
+    compared = _greedy_parity(checkpoint, JaxMMOpts(), MMOpts(), FORWARD_TOL,
+                              PROMPT_LENS)
+    assert compared >= 2 * NEW, compared
+
+
+def test_greedy_generate_under_act_quant_matches_jax(checkpoint):
+    """The same under Q8_1 activations with precision "high": decode runs
+    the integer route (n = 4), prefill chunks the fake-quant one. Twice
+    the prompts, since the wider act_quant bound ends more comparisons
+    at near-ties."""
+    compared = _greedy_parity(
+        checkpoint, JaxMMOpts(act_quant=True, precision="high"),
+        MMOpts(act_quant=True, precision="high"), FORWARD_TOL_ACT_QUANT,
+        PROMPT_LENS * 2, seed=1)
     assert compared >= 2 * NEW, compared
 
 
@@ -110,13 +135,20 @@ sys.modules["jax"] = None
 sys.path.insert(0, {repo!r})
 import gguf_tpu_torch, gguf_tpu_torch.ops, gguf_tpu_torch.quant
 from gguf_tpu_torch.engine import LLM
-from gguf_tpu_torch.models import LlamaConfig, write_random_llama_gguf
+from gguf_tpu_torch.eval import perplexity_of_gguf
+from gguf_tpu_torch.models import LlamaConfig, MMOpts, write_random_llama_gguf
 cfg = LlamaConfig(vocab_size=64, dim=256, n_layers=1, n_heads=4,
                   n_kv_heads=2, ffn_dim=256, max_seq_len=64)
 write_random_llama_gguf({path!r}, cfg, seed=2)
 res = LLM({path!r}, max_batch=2, device="cpu").generate([[1, 2, 3]],
                                                          max_new_tokens=2)
 assert len(res[0].token_ids) == 2, res
+res = LLM({path!r}, max_batch=2, device="cpu",
+          opts=MMOpts(act_quant=True, precision="high")).generate(
+              [[1, 2, 3]], max_new_tokens=2)
+assert len(res[0].token_ids) == 2, res
+assert perplexity_of_gguf({path!r}, list(range(40)), device="cpu",
+                          act_quant=True, window=16) > 1.0
 assert sys.modules["jax"] is None
 print("ok")
 """

@@ -1,5 +1,5 @@
-"""The port's Q4_K/Q6_K MMQ (plain PyTorch versions of kernels K1/K2) held
-against the JAX package's Pallas MMQ kernels (interpret mode on the CPU),
+"""The port's Q4_K/Q5_K/Q6_K MMQ (plain PyTorch versions of kernels K1, K8
+and K2) held against the JAX package's Pallas MMQ kernels (interpret mode on the CPU),
 and the port's dequantization held bit-equal to the GGUF codecs."""
 
 import numpy as np
@@ -9,18 +9,22 @@ import torch
 import jax.numpy as jnp
 
 from gguf_tpu.ops import mmq_q4_k as jax_mmq_q4_k
+from gguf_tpu.ops import mmq_q5_k as jax_mmq_q5_k
 from gguf_tpu.ops import mmq_q6_k as jax_mmq_q6_k
-from gguf_tpu.quant import (dequantize_q4_k, dequantize_q6_k, quantize_q4_k,
-                            quantize_q6_k)
+from gguf_tpu.quant import (dequantize_q4_k, dequantize_q5_k, dequantize_q6_k,
+                            quantize_q4_k, quantize_q5_k, quantize_q6_k)
 from gguf_tpu.quant.layouts import to_soa
-from gguf_tpu_torch.ops import MMQ, mmq_q4_k, mmq_q6_k
+from gguf_tpu_torch.ops import MMQ, mmq_q4_k, mmq_q5_k, mmq_q6_k
 from gguf_tpu_torch.ops.mmq_q4_k import dequantize_q4_k_plain
+from gguf_tpu_torch.ops.mmq_q5_k import dequantize_q5_k_plain
 from gguf_tpu_torch.ops.mmq_q6_k import dequantize_q6_k_plain
 from gguf_tpu_torch.quant import QuantWeight, concat_m
 
 M, K = 256, 512
-QUANTIZE = {"q4_k": quantize_q4_k, "q6_k": quantize_q6_k}
-CODEC = {"q4_k": dequantize_q4_k, "q6_k": dequantize_q6_k}
+QUANTIZE = {"q4_k": quantize_q4_k, "q5_k": quantize_q5_k,
+            "q6_k": quantize_q6_k}
+CODEC = {"q4_k": dequantize_q4_k, "q5_k": dequantize_q5_k,
+         "q6_k": dequantize_q6_k}
 # "fast" rounds operands to bf16: where XLA fuses the dequant into an FMA a
 # weight can land one bf16 ulp away, so the bound is relative to max|ref|
 TOL = {"fast": 1e-3, "high": 1e-5}
@@ -44,12 +48,13 @@ def _assert_close(got, ref, precision):
         err, np.max(np.abs(ref)))
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q5_k"])
 def test_dequantize_bit_equal_to_codec(fmt):
     raw, _, w = _weight(fmt)
     ref = CODEC[fmt](raw, (M, K))
     np.testing.assert_array_equal(w.dequantize().numpy(), ref)
-    plain = {"q4_k": dequantize_q4_k_plain, "q6_k": dequantize_q6_k_plain}
+    plain = {"q4_k": dequantize_q4_k_plain, "q5_k": dequantize_q5_k_plain,
+             "q6_k": dequantize_q6_k_plain}
     np.testing.assert_array_equal(plain[fmt](w).numpy(), ref)
     np.testing.assert_array_equal(w.blocks().numpy().reshape(-1), raw)
 
@@ -76,6 +81,29 @@ def test_mmq_q6_k_matches_jax(n, precision):
                                   precision=precision))
     got = mmq_q6_k(wt, torch.from_numpy(b), precision=precision)
     _assert_close(got.numpy(), ref, precision)
+
+
+@pytest.mark.parametrize("precision", ["fast", "high"])
+@pytest.mark.parametrize("n", [1, 8, 16, 64, 72, 256])
+def test_mmq_q5_k_matches_jax(n, precision):
+    _, wj, wt = _weight("q5_k", seed=200 + n)
+    b = _acts(n, K, seed=n + 3)
+    ref = np.asarray(jax_mmq_q5_k(wj, jnp.asarray(b), act_quant=False,
+                                  precision=precision))
+    got = mmq_q5_k(wt, torch.from_numpy(b), precision=precision)
+    assert got.shape == (n, M) and got.dtype == torch.float32
+    _assert_close(got.numpy(), ref, precision)
+
+
+def test_q5_k_codes_carry_the_fifth_bit():
+    """A Q5_K weight whose every code is >= 16 dequantizes to the codec's
+    values, which the Q4_K nibbles alone cannot reach."""
+    raw, _, _ = _weight("q5_k", m=4, seed=9)
+    blk = raw.reshape(4, K // 256, 176).copy()
+    blk[:, :, 16:48] = 0xFF                 # every fifth bit set
+    w = QuantWeight.from_blocks("q5_k", blk, (4, K), "cpu")
+    np.testing.assert_array_equal(dequantize_q5_k_plain(w).numpy(),
+                                  dequantize_q5_k(blk.reshape(-1), (4, K)))
 
 
 def test_bf16_activations_equal_f32_of_same_values():
@@ -107,6 +135,10 @@ def test_operand_checks_and_unported_formats():
         mmq_q4_k(w, torch.zeros(2, K), glu="silu")      # needs (N, 2K)
     with pytest.raises(ValueError):
         mmq_q6_k(w, torch.zeros(2, K))                  # wrong format
+    with pytest.raises(ValueError):
+        mmq_q5_k(w, torch.zeros(2, K))
+    with pytest.raises(ValueError, match="precision"):
+        mmq_q5_k(w, torch.zeros(2, K), precision="medium")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MMQ["q8_0"]
 
