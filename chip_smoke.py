@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's eight hand-written CUDA kernels from gguf_tpu_torch/csrc
-(one nvcc per source, all at once), writes (or reuses, under the temp dir)
-two random TinyLlama-1.1B-shaped checkpoints at full width and all 22
-layers — Q4_K_M (Q4_K projections, Q6_K head) and Q5_K_M (Q5_K projections
-and embedding, Q6_K head) — and then runs two main paths, each with every
+Builds the port's nine hand-written CUDA kernels from gguf_tpu_torch/csrc
+(one nvcc per source, all at once) while child processes write (or
+reuse, under the temp dir) three random checkpoints at full width and
+depth: TinyLlama-1.1B as Q4_K_M (Q4_K projections and embedding, Q6_K
+head) and as Q5_K_M (Q5_K projections and embedding, Q6_K head), and
+Llama-2-7B as Q4_K_M. It then runs the main paths below, each with every
 kernel's launch counter reset just before it and read just after:
 
 Q4_K_M with bf16 activations (kernels K1-K4):
@@ -37,15 +38,40 @@ precision="high")` (kernels K2-K8):
    window=512)` and holds the card's mean NLL over one 256-token window,
    2 layers, within 1e-2 nats of the CPU run's.
 
+Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
+(kernels K1-K4 and K9, flash-decoding):
+8. holds K9 against its plain version ("fast" and "high", 1e-3 of
+   max|ref|) at the 7B geometry (16 slots, 32 heads of 128, spans 1024,
+   2048 and 4096, positions 0, 255, 256, random ones and an inactive slot
+   at pos = 4096), with a sliding window and softcap, and at the
+   TinyLlama geometry (8 query heads per KV head, hd 64, span 2048); then
+   K3/K4 at hd 128 with one query head per KV head and K1/K2 at every 7B
+   projection and the head, against their plain versions;
+9. serves two rounds of 16 requests through `LLM(max_batch=16,
+   max_seq=4096)`, 32 greedy tokens each: round A (prompts of 5..440
+   tokens, every decode step at span <= 512: K1-K4) and round B (600..3,900
+   tokens: prefill crosses every span bucket, decode runs at span 4096 on
+   K3 + K9), every logit finite;
+10. times a 16-slot decode step at span 512 and at span 4096 (host clock
+   and `torch.profiler`: device time, K9 per layer beside its bound) and
+   a 512-token prefill chunk;
+11. checks 2 layers against the CPU run of the same port: the logits of a
+   16-token prefill, then a 2,100-token prefill on the card whose cache
+   is copied to the CPU, and one t = 1 and one t = 8 step at span 4096 on
+   both (1e-2 of max|ref|); the card's t = 1 step must launch K9 and no
+   K4, its t = 8 step neither (the f32 arm).
+
 `--profile` instead splits a 16-slot decode step of the Q5_K_M
 checkpoint with bf16 activations and under act_quant (host clock and
 `torch.profiler`), and checks nothing.
 
 Prints the card's name and power limit, a per-shape table, seconds per
-phase, one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
-{...}}. Any failed check raises and the script exits nonzero. Needs one
-CUDA device, nvcc, gcc and make (the native GGUF quantizer is built with
-make).
+phase, one JSON line {"kernels": [...]} (per kernel its headline shape's
+times, its bound from this run's inputs and, where one PyTorch call
+computes the same function, that call's time) and, last, {"ok": true,
+"device": {...}}. Any failed check raises and the script exits nonzero.
+Needs one CUDA device, nvcc, gcc and make (the native GGUF quantizer is
+built with make).
 """
 
 from __future__ import annotations
@@ -63,6 +89,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gguf_tpu_torch.engine import LLM, SamplerConfig
 from gguf_tpu_torch.engine import engine as engine_mod
@@ -75,8 +102,10 @@ from gguf_tpu_torch.ops.activation import (fake_quantize_q8_1,
                                            fake_quantize_q8_1_plain,
                                            quantize_q8_1_codes,
                                            quantize_q8_1_codes_plain)
-from gguf_tpu_torch.ops.attention import (decode_attention,
+from gguf_tpu_torch.ops.attention import (_attend_cuda, decode_attention,
                                           decode_attention_plain,
+                                          decode_attention_tiled,
+                                          decode_attention_tiled_plain,
                                           decode_attention_update,
                                           kv_cache_insert,
                                           kv_cache_insert_plain)
@@ -93,8 +122,22 @@ MAX_BATCH, MAX_SEQ, NEW_TOKENS = 16, 2048, 32
 DEVICE = "cuda"
 PROMPT_LENS = (5, 7, 8, 12, 16, 24, 33, 48, 60, 64, 80, 100, 128, 150, 175,
                200, 225, 250, 260, 270, 280, 290, 295, 300)
+# Llama-2-7B (meta-llama/Llama-2-7b-hf config.json; benchmarks/suite.py
+# "7b"): vocab 32000, dim 4096, 32 layers, 32 heads, 32 KV heads (head_dim
+# 128), ffn 11008, rope theta 10000, RMS eps 1e-5, context 4096
+CFG7B = LlamaConfig(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                    n_kv_heads=32, ffn_dim=11008, max_seq_len=4096)
+SEQ7B = 4096
+# round A: every decode step at span <= 512; round B: decode at span 4096
+ROUND_A = (5, 12, 24, 40, 64, 90, 128, 160, 200, 240, 280, 320, 360, 400,
+           420, 440)
+ROUND_B = (600, 800, 1000, 1200, 1400, 1700, 2000, 2100, 2300, 2600, 2900,
+           3100, 3300, 3500, 3700, 3900)
+LONG_PROMPT = 2100             # the long-span reference check's prefill
+TILED_SPANS = (1024, 2048, 4096)
 MMQ_NS = (1, 16, 512)
 ATTN_TS, ATTN_SPANS = (1, 8), (128, 512, 2048)
+ATTN_SPANS_7B = (128, 512)
 Q81_NS, Q81_KS = (1, 16, 64, 512), (2048, 5632)
 I8_NS = (1, 4, 8, 16)           # the JAX package's integer route: n <= 16
 # K6's f32 output feeds K8 above n = 16 (prefill chunks, perplexity) and
@@ -141,6 +184,8 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                "gguf_tpu/ops/mmq_q4_k.py:268"),
     "mmq_q5_k": ("gguf_tpu_torch/csrc/mmq_q5_k.cu",
                  "gguf_tpu/ops/mmq_q5_k.py:65"),
+    "decode_attention_tiled": ("gguf_tpu_torch/csrc/attention.cu",
+                               "gguf_tpu/ops/attention.py:369"),
 }
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
 WRAPPERS = {"mmq_q4_k": mmq_q4_k, "mmq_q6_k": mmq_q6_k,
@@ -148,13 +193,17 @@ WRAPPERS = {"mmq_q4_k": mmq_q4_k, "mmq_q6_k": mmq_q6_k,
             "decode_attention": decode_attention,
             "quantize_q8_1_codes": quantize_q8_1_codes,
             "fake_quantize_q8_1": fake_quantize_q8_1,
-            "mmq_i8": mmq_i8, "mmq_q5_k": mmq_q5_k}
+            "mmq_i8": mmq_i8, "mmq_q5_k": mmq_q5_k,
+            "decode_attention_tiled": decode_attention_tiled}
 # the kernels each main path must launch; a kernel's "launches" in the
 # {"kernels": ...} line come from the last path that requires it
 Q4KM_KERNELS = ("mmq_q4_k", "mmq_q6_k", "kv_cache_insert", "decode_attention")
 Q5KM_KERNELS = ("mmq_q6_k", "kv_cache_insert", "decode_attention",
                 "quantize_q8_1_codes", "fake_quantize_q8_1", "mmq_i8",
                 "mmq_q5_k")
+ROUND_A_KERNELS = Q4KM_KERNELS
+ROUND_B_KERNELS = ("mmq_q4_k", "mmq_q6_k", "kv_cache_insert",
+                   "decode_attention_tiled")
 # the (decode-width) shape whose times stand in the {"kernels": ...} line
 HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
             "mmq_q6_k": "head 32000x2048 n=16",
@@ -163,7 +212,13 @@ HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
             "quantize_q8_1_codes": "n=16 K=2048 bf16",
             "fake_quantize_q8_1": "n=16 K=2048 bf16",
             "mmq_i8": "q5_k gate_up 11264x2048 n=16",
-            "mmq_q5_k": "gate_up 11264x2048 n=16 fast"}
+            "mmq_q5_k": "gate_up 11264x2048 n=16 fast",
+            "decode_attention_tiled": "b16 h32 hd128 span=4096 fast"}
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense): a kernel's bound
+# is the larger of its bytes over HBM_BPS and its operations over the peak
+# of their type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -223,16 +278,42 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return err, err / max(float(ref.float().abs().max()), 1e-30)
 
 
+def nbytes(*objs) -> int:
+    """Bytes of tensors and quantized weights (every field)."""
+    return sum(sum(f.numel() * f.element_size() for f in o.fields.values())
+               if hasattr(o, "fields") else o.numel() * o.element_size()
+               for o in objs)
+
+
+def bound_ms(n_bytes: float, ops: float, kind: str) -> tuple:
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    tb, to = n_bytes / HBM_BPS, ops / PEAK_OPS[kind]
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def live_rows(pos: torch.Tensor, span: int) -> int:
+    """Cache rows per KV head, summed over the batch, that attention at
+    t = 1 must read: the columns c < span with c <= pos."""
+    return int(torch.clamp(pos.long() + 1, min=0, max=span).sum())
+
+
 class Report:
-    """Per-kernel worst error, and the headline shape's times."""
+    """Per-kernel worst error; the headline shape's times, bound and
+    library yardstick."""
 
     def __init__(self):
         self.err = {k: 0.0 for k in KERNELS}
         self.times = {}
+        self.bound = {}
+        self.library = {}
 
-    def add(self, kernel, shape, err, rel, tol, fn=None, plain_fn=None):
+    def add(self, kernel, shape, err, rel, tol, fn=None, plain_fn=None,
+            work=None, library=None):
         """Record one check; time fn (the kernel) and plain_fn with CUDA
-        events, and at the headline shape also by profiler device time."""
+        events, and at the headline shape also by profiler device time,
+        with the bound from `work` = (bytes, operations, their type) and
+        the time of the call that `library()` returns, one PyTorch call
+        computing the same function (or None)."""
         ok = rel <= tol
         times = "not timed"
         if ok and fn is not None:
@@ -241,14 +322,44 @@ class Report:
             if shape == HEADLINE[kernel]:
                 dms, pdms = device_ms(fn), device_ms(plain_fn)
                 self.times[kernel] = (ms, pms, dms, pdms)
+                self.bound[kernel] = bound_ms(*work)
+                self.library[kernel] = None if library is None else cuda_ms(
+                    library())
                 dev = ["not measured" if v is None else f"{v:.4f} ms"
                        for v in (dms, pdms)]
-                times += f" (device {dev[0]} vs plain {dev[1]})"
+                lib = ("none" if library is None
+                       else f"{self.library[kernel]:.4f} ms")
+                times += (f" (device {dev[0]} vs plain {dev[1]}; bound "
+                          f"{self.bound[kernel][0]:.4f} ms by "
+                          f"{self.bound[kernel][1]}; library {lib})")
         log(f"  {kernel:19s} {shape:38s} max|d|={err:.3e} rel={rel:.2e} "
             f"(tol {tol:g}) {times}{'' if ok else '  FAILED'}")
         if not ok:
             raise AssertionError(f"{kernel} {shape}: rel err {rel} > {tol}")
         self.err[kernel] = max(self.err[kernel], err)
+
+
+def matmul_library(w, x: torch.Tensor):
+    """The yardstick of an MMQ kernel: torch.matmul on the weight
+    dequantized to bf16 beforehand (bf16 activations)."""
+    wd = w.dequantize().to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    return lambda: torch.matmul(xb, wd.T)
+
+
+def sdpa_library(q, cache, pos, span: int, precision: str):
+    """The yardstick of K4/K9 at t = 1: F.scaled_dot_product_attention over
+    the first `span` rows of the cache dequantized beforehand (bf16 under
+    "fast", else f32), KV heads repeated for GQA, with the causal mask."""
+    dt = torch.bfloat16 if precision == "fast" else torch.float32
+    k, ks, v, vs = cache
+    g = q.shape[1] // k.shape[1]
+    kd, vd = ((c[:, :, :span].float() * sc[:, :, :span, None]).to(dt)
+              .repeat_interleave(g, dim=1) for c, sc in ((k, ks), (v, vs)))
+    mask = (torch.arange(span, device=q.device)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    qd = q.to(dt)
+    return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
 
 
 def check_toolchain() -> None:
@@ -285,15 +396,62 @@ def build_kernels() -> None:
                     log(f"  ptxas {name}: {line.strip()}")
 
 
-def checkpoint(seed: int, fmt: GGMLType, tag: str) -> str:
-    path = os.path.join(tempfile.gettempdir(),
-                        f"gguf_tpu_torch_tinyllama_{tag}_seed{seed}.gguf")
-    if not os.path.exists(path):
-        tmp = path + f".{os.getpid()}.tmp"
-        write_random_llama_gguf(tmp, CFG, fmt=fmt, seed=seed)
-        os.replace(tmp, path)
-        log(f"wrote {path}")
-    return path
+# tag -> (config, projection format, model name in the file name)
+CHECKPOINTS = {"q4km": (CFG, GGMLType.Q4_K, "tinyllama"),
+               "q5km": (CFG, GGMLType.Q5_K, "tinyllama"),
+               "q4km_7b": (CFG7B, GGMLType.Q4_K, "llama2_7b")}
+
+
+def checkpoint_path(seed: int, tag: str) -> str:
+    model = CHECKPOINTS[tag][2]
+    return os.path.join(tempfile.gettempdir(),
+                        f"gguf_tpu_torch_{model}_{tag}_seed{seed}.gguf")
+
+
+def write_checkpoint(seed: int, tag: str) -> None:
+    """Write one random checkpoint (the child process's whole work)."""
+    cfg, fmt, _ = CHECKPOINTS[tag]
+    path = checkpoint_path(seed, tag)
+    tmp = path + f".{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    write_random_llama_gguf(tmp, cfg, fmt=fmt, seed=seed)
+    os.replace(tmp, path)
+    log(f"wrote {path} in {time.perf_counter() - t0:.1f} s")
+
+
+class Writers:
+    """Checkpoints missing under the temp dir, each written by a child
+    process (`--write TAG`), all started at once; `stop` ends any still
+    running."""
+
+    def __init__(self, seed: int, tags: tuple):
+        self.procs = {}
+        env = dict(os.environ, OMP_WAIT_POLICY="PASSIVE")
+        for tag in tags:
+            path = checkpoint_path(seed, tag)
+            proc = None if os.path.exists(path) else subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--write", tag], env=env)
+            self.procs[tag] = (path, proc)
+
+    def wait(self, tag: str) -> str:
+        path, proc = self.procs[tag]
+        if proc is not None and proc.wait() != 0:
+            raise RuntimeError(f"step 'checkpoint {tag}': the writer exited "
+                               f"with {proc.returncode}")
+        return path
+
+    def stop(self) -> None:
+        for _, proc in self.procs.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _mmq_work(w, x, out, kind: str = "bf16") -> tuple:
+    """An MMQ call's bytes (weight, activations, output) and operations."""
+    n, m = out.shape
+    return nbytes(w, x, out), 2.0 * n * m * w.shape[1], kind
 
 
 def compare_mmq(params: dict, gen: torch.Generator, rep: Report) -> None:
@@ -313,7 +471,9 @@ def compare_mmq(params: dict, gen: torch.Generator, rep: Report) -> None:
             rep.add("mmq_q4_k", f"{name} {w.shape[0]}x{w.shape[1]} n={n}",
                     err, rel, TOL_MMQ,
                     lambda: mmq_q4_k(w, x, precision="fast", glu=glu),
-                    lambda: mmq_q4_k_plain(w, x, precision="fast", glu=glu))
+                    lambda: mmq_q4_k_plain(w, x, precision="fast", glu=glu),
+                    work=_mmq_work(w, x, got),
+                    library=lambda: matmul_library(w, x))
         w = params["output"]
         x = torch.randn((n, w.shape[1]), generator=gen, device=DEVICE).bfloat16()
         got = mmq_q6_k(w, x, precision="fast")
@@ -321,7 +481,9 @@ def compare_mmq(params: dict, gen: torch.Generator, rep: Report) -> None:
         err, rel = rel_err(got, ref)
         rep.add("mmq_q6_k", f"head {w.shape[0]}x{w.shape[1]} n={n}",
                 err, rel, TOL_MMQ, lambda: mmq_q6_k(w, x, precision="fast"),
-                lambda: mmq_q6_k_plain(w, x, precision="fast"))
+                lambda: mmq_q6_k_plain(w, x, precision="fast"),
+                work=_mmq_work(w, x, got),
+                library=lambda: matmul_library(w, x))
 
 
 def _random_cache(gen: torch.Generator, b: int, kvh: int, s: int, hd: int):
@@ -335,8 +497,26 @@ def _random_cache(gen: torch.Generator, b: int, kvh: int, s: int, hd: int):
     return [codes(), scales(), codes(), scales()]
 
 
-def compare_attention(gen: torch.Generator, rep: Report) -> None:
-    b, h, kvh, hd, s = MAX_BATCH, CFG.n_heads, CFG.n_kv_heads, CFG.head_dim, MAX_SEQ
+def _attn_work(q, kn, cache, pos, span: int, t: int, insert: bool) -> tuple:
+    """Bytes and operations attention needs: q, the live K/V rows and
+    scales of the span (every query token sees at most pos + t rows),
+    the output, and with the insert the new rows read and written."""
+    b, h, _, hd = q.shape
+    kvh = cache[0].shape[1]
+    rows = live_rows(pos + t - 1, span)
+    n = 2 * q.numel() * 4 + rows * kvh * 2 * (hd + 4)
+    if insert:
+        n += 2 * kn.numel() * (4 + 1) + 2 * b * kvh * t * 4
+    return n, 4.0 * rows * (h // kvh) * kvh * t * hd, "bf16"
+
+
+def compare_attention(gen: torch.Generator, rep: Report, *, h: int,
+                      kvh: int, hd: int, s: int, spans: tuple,
+                      tag: str = "") -> None:
+    """K3 bit-equal to its plain version and K4 (read-only, window +
+    softcap, and with the fused t = 1 insert) within TOL_ATTN, at 16
+    slots over an (s)-row cache; `tag` prefixes the shape names."""
+    b = MAX_BATCH
     for t in ATTN_TS:
         cache = _random_cache(gen, b, kvh, s, hd)
         kn = torch.randn((b, kvh, t, hd), generator=gen, device=DEVICE) * 2
@@ -351,11 +531,13 @@ def compare_attention(gen: torch.Generator, rep: Report) -> None:
         for g, r in zip(got, ref):
             if not torch.equal(g, r):
                 raise AssertionError(f"kv_cache_insert t={t}: cache differs")
-        rep.add("kv_cache_insert", f"b{b} t={t}", 0.0, 0.0, 0.0,
+        written = 2 * b * kvh * t * (hd + 4)     # the last slot writes none
+        rep.add("kv_cache_insert", f"{tag}b{b} t={t}", 0.0, 0.0, 0.0,
                 lambda: kv_cache_insert(kn, vn, *got, pos),
-                lambda: kv_cache_insert_plain(kn, vn, *ref, pos))
+                lambda: kv_cache_insert_plain(kn, vn, *ref, pos),
+                work=(nbytes(kn, vn, pos) + written, 0.0, "f32"))
 
-        for span in ATTN_SPANS:
+        for span in spans:
             q = torch.randn((b, h, t, hd), generator=gen, device=DEVICE).bfloat16()
             p = torch.randint(0, span - t + 1, (b,), generator=gen,
                               device=DEVICE, dtype=torch.int32)
@@ -363,9 +545,10 @@ def compare_attention(gen: torch.Generator, rep: Report) -> None:
             out = decode_attention(q, *cache, p, **kw)
             ref_out = decode_attention_plain(q, *cache, p, **kw)
             err, rel = rel_err(out, ref_out)
-            rep.add("decode_attention", f"b{b} t={t} span={span}", err, rel,
-                    TOL_ATTN, lambda: decode_attention(q, *cache, p, **kw),
-                    lambda: decode_attention_plain(q, *cache, p, **kw))
+            rep.add("decode_attention", f"{tag}b{b} t={t} span={span}", err,
+                    rel, TOL_ATTN, lambda: decode_attention(q, *cache, p, **kw),
+                    lambda: decode_attention_plain(q, *cache, p, **kw),
+                    work=_attn_work(q, kn, cache, p, span, t, False))
             if span == 512:
                 # sliding window and softcap: no ported family uses them
                 # yet, so they are checked here and not timed
@@ -373,8 +556,8 @@ def compare_attention(gen: torch.Generator, rep: Report) -> None:
                 err, rel = rel_err(decode_attention(q, *cache, p, **wkw),
                                    decode_attention_plain(q, *cache, p, **wkw))
                 rep.add("decode_attention",
-                        f"b{b} t={t} span={span} window+softcap", err, rel,
-                        TOL_ATTN)
+                        f"{tag}b{b} t={t} span={span} window+softcap", err,
+                        rel, TOL_ATTN)
             if t != 1:
                 continue
             # the fused t = 1 insert + attend, as every decode step runs it
@@ -393,10 +576,74 @@ def compare_attention(gen: torch.Generator, rep: Report) -> None:
                 kv_cache_insert_plain(kn1, vn1, *ref, p)
                 return decode_attention_plain(q, *ref, p, **kw)
 
-            rep.add("decode_attention", f"b{b} t=1 span={span} insert", err,
-                    rel, TOL_ATTN,
+            rep.add("decode_attention", f"{tag}b{b} t=1 span={span} insert",
+                    err, rel, TOL_ATTN,
                     lambda: decode_attention_update(q, kn1, vn1, *got, p, **kw),
-                    plain_update)
+                    plain_update,
+                    work=_attn_work(q, kn1, cache, p, span, 1, True),
+                    library=lambda: sdpa_library(q, ref, p, span, "fast"))
+
+
+def _tiled_positions(gen: torch.Generator, b: int, s: int) -> torch.Tensor:
+    """Random positions with the first row, both sides of a tile edge and
+    an inactive slot (pos = S: every column live)."""
+    pos = torch.randint(0, s, (b,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    pos[:3] = torch.tensor([0, 255, 256], dtype=torch.int32)
+    pos[-1] = s
+    return pos
+
+
+def compare_tiled(gen: torch.Generator, rep: Report) -> None:
+    """K9 against its plain version within TOL_ATTN, "fast" and "high": at
+    the 7B geometry (16 slots, 32 heads and 32 KV heads of 128, a 4096-row
+    cache) for spans 1024, 2048, 4096, and with window 64 + softcap 8.0;
+    at the TinyLlama geometry (32 heads over 4 KV heads of 64) at span
+    2048. The 4096 "fast" case is the headline: its bound counts the
+    live rows of these positions."""
+    cases = [(CFG7B, SEQ7B, TILED_SPANS, "b16 h32 hd128"),
+             (CFG, MAX_SEQ, (2048,), "b16 h32 kvh4 hd64")]
+    b = MAX_BATCH
+    for cfg, s, spans, label in cases:
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        cache = _random_cache(gen, b, kvh, s, hd)
+        pos = _tiled_positions(gen, b, s)
+        q = torch.randn((b, h, 1, hd), generator=gen, device=DEVICE)
+        for span in spans:
+            for prec in ("fast", "high"):
+                kw = dict(precision=prec, span=span)
+                err, rel = rel_err(
+                    decode_attention_tiled(q, *cache, pos, **kw),
+                    decode_attention_tiled_plain(q, *cache, pos, **kw))
+                rows = live_rows(pos, span)
+                work = (2 * q.numel() * 4 + rows * kvh * 2 * (hd + 4),
+                        4.0 * rows * h * hd, "bf16" if prec == "fast" else "f32")
+                rep.add("decode_attention_tiled", f"{label} span={span} {prec}",
+                        err, rel, TOL_ATTN,
+                        lambda: decode_attention_tiled(q, *cache, pos, **kw),
+                        lambda: decode_attention_tiled_plain(q, *cache, pos,
+                                                             **kw),
+                        work=work,
+                        library=lambda: sdpa_library(q, cache, pos, span, prec))
+        if cfg is CFG7B:
+            # K4's single-tile form on the same cache and positions at the
+            # span where the routing takes K9 instead: what K9 replaces
+            def k4():
+                return _attend_cuda(q, None, None, *cache, pos, t=1,
+                                    precision="fast", span=s, window=0,
+                                    softcap=0.0)
+
+            rel = rel_err(k4(), decode_attention_plain(
+                q, *cache, pos, t=1, precision="fast", span=s))[1]
+            log(f"  K4 single-tile form, {label} span={s} fast: "
+                f"{cuda_ms(k4, iters=5):.4f} ms (rel err {rel:.2e} vs its "
+                "plain version)")
+            wkw = dict(precision="fast", span=s, window=64, softcap=8.0)
+            err, rel = rel_err(decode_attention_tiled(q, *cache, pos, **wkw),
+                               decode_attention_tiled_plain(q, *cache, pos,
+                                                            **wkw))
+            rep.add("decode_attention_tiled",
+                    f"{label} span={s} window+softcap", err, rel, TOL_ATTN)
 
 
 def _q8_1_input(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
@@ -434,14 +681,18 @@ def compare_q8_1(gen: torch.Generator, rep: Report) -> None:
                     raise AssertionError(f"{shape}: no block with sum > 2048")
                 _bit_equal("quantize_q8_1_codes", shape, (q, d, s),
                            quantize_q8_1_codes_plain(x))
+                # element-wise work: the bytes bound it
                 rep.add("quantize_q8_1_codes", shape, 0.0, 0.0, 0.0,
                         lambda: quantize_q8_1_codes(x),
-                        lambda: quantize_q8_1_codes_plain(x))
-                _bit_equal("fake_quantize_q8_1", shape, (fake_quantize_q8_1(x),),
+                        lambda: quantize_q8_1_codes_plain(x),
+                        work=(nbytes(x, q, d, s), 0.0, "f32"))
+                fq = fake_quantize_q8_1(x)
+                _bit_equal("fake_quantize_q8_1", shape, (fq,),
                            (fake_quantize_q8_1_plain(x),))
                 rep.add("fake_quantize_q8_1", shape, 0.0, 0.0, 0.0,
                         lambda: fake_quantize_q8_1(x),
-                        lambda: fake_quantize_q8_1_plain(x))
+                        lambda: fake_quantize_q8_1_plain(x),
+                        work=(nbytes(x, fq), 0.0, "f32"))
     gu = torch.randn((16, 2 * CFG.ffn_dim), generator=gen,
                      device=DEVICE).bfloat16()
     shape = f"n=16 K={CFG.ffn_dim} glu=silu bf16"
@@ -471,7 +722,10 @@ def compare_i8(layer5: dict, layer4: dict, gen: torch.Generator,
             err, rel = rel_err(got, ref)
             rep.add("mmq_i8", f"{name} {w.shape[0]}x{w.shape[1]} n={n}", err,
                     rel, TOL_I8, lambda: mmq_i8(w, q, d, s),
-                    lambda: mmq_i8_plain(w, q, d, s))
+                    lambda: mmq_i8_plain(w, q, d, s),
+                    work=(nbytes(w, q, d, s, got),
+                          2.0 * n * w.shape[0] * w.shape[1], "int8"),
+                    library=lambda: matmul_library(w, x))
 
 
 def compare_q5_k(layer5: dict, gen: torch.Generator, rep: Report) -> None:
@@ -494,7 +748,10 @@ def compare_q5_k(layer5: dict, gen: torch.Generator, rep: Report) -> None:
                 rep.add("mmq_q5_k", shape if dt == "bf16" else f"{shape} {dt}",
                         err, rel, TOL_MMQ if prec == "fast" else TOL_HIGH,
                         lambda: mmq_q5_k(w, x, precision=prec),
-                        lambda: mmq_q5_k_plain(w, x, precision=prec))
+                        lambda: mmq_q5_k_plain(w, x, precision=prec),
+                        work=_mmq_work(w, x, got,
+                                       "bf16" if prec == "fast" else "f32"),
+                        library=lambda: matmul_library(w, x))
 
 
 def compare_head_act_quant(params5: dict, gen: torch.Generator,
@@ -513,13 +770,14 @@ def compare_head_act_quant(params5: dict, gen: torch.Generator,
                 lambda: mmq_q6_k_plain(w, x, precision="high"))
 
 
-def serve(llm: LLM, seed: int, required: tuple) -> dict:
-    """A main path: continuous batching over 24 prompts, every logit
-    checked finite on the device (no host sync per step), and every
-    kernel in `required` launched."""
+def serve(llm: LLM, seed: int, required: tuple,
+          prompt_lens: tuple = PROMPT_LENS) -> dict:
+    """A main path: continuous batching over seeded prompts of
+    `prompt_lens` tokens, every logit checked finite on the device (no host
+    sync per step), and every kernel in `required` launched."""
     rng = np.random.default_rng(seed)
-    prompts = [[int(v) for v in rng.integers(0, CFG.vocab_size, n)]
-               for n in PROMPT_LENS]
+    prompts = [[int(v) for v in rng.integers(0, llm.cfg.vocab_size, n)]
+               for n in prompt_lens]
     finite = torch.ones((), dtype=torch.bool, device=DEVICE)
     n_fwd = [0]
     plain_forward = engine_mod.forward
@@ -549,9 +807,11 @@ def serve(llm: LLM, seed: int, required: tuple) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     st = res[0].stats
+    chunks = sum(-(-n // engine_mod.PREFILL_CHUNK) for n in prompt_lens)
     log(f"served {len(res)} requests x {NEW_TOKENS} tokens, {n_fwd[0]} "
         f"forwards, all logits finite: wall {st['wall_s']:.2f} s, prefill "
-        f"{st['prefill_s']:.2f} s, decode {st['decode_s']:.2f} s for "
+        f"{st['prefill_s']:.2f} s for {sum(prompt_lens)} prompt tokens in "
+        f"{chunks} chunks, decode {st['decode_s']:.2f} s for "
         f"{st['decode_tokens']} tokens = "
         f"{st['decode_tokens'] / st['decode_s']:.1f} decode tok/s at batch "
         f"<= {MAX_BATCH}; end to end {st['tokens_per_s']:.1f} tok/s")
@@ -756,15 +1016,136 @@ def profile_decode(path: str, seed: int, rounds: int = 3) -> None:
                     f"{e.key[:80]}")
 
 
+def hbm_read_gbs() -> float:
+    """The card's HBM read rate: x.sum() over 4 GiB of float32."""
+    x = torch.ones(2 ** 30, device=DEVICE)
+    ms = cuda_ms(lambda: x.sum(), iters=10)
+    del x
+    torch.cuda.empty_cache()
+    return 4 * 2 ** 30 / ms / 1e6
+
+
+def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
+    """Where the 7B decode step goes: 16 live slots at round A's and at
+    round B's positions (spans 512 and 4096). Per step the host clock over
+    8 steps ending in a sync, then `torch.profiler` over 4 steps: device
+    busy time and the top kernels; K9's device time per layer beside its
+    bound (the live K/V rows and their scales over the HBM read measured
+    in this run and over the published 3.35 TB/s). Then one 512-token
+    prefill chunk at the start of a slot and one at span 4096."""
+    sampler, gen = SamplerConfig(), torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    cfg, layers = llm.cfg, llm.cfg.n_layers
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, MAX_BATCH),
+                          device=DEVICE)
+    for lens, span in ((ROUND_A, 512), (ROUND_B, SEQ7B)):
+        pos = torch.tensor([lens[i % len(lens)] for i in range(MAX_BATCH)],
+                           dtype=torch.int32, device=DEVICE)
+        llm._decode(tok, pos, sampler, 2, span, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm._decode(tok, pos, sampler, 8, span, gen)
+        issue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 8 * 1e3
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            llm._decode(tok, pos, sampler, 4, span, gen)
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.key_averages()
+                       if e.device_type.name == "CUDA"),
+                      key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in kern) / 4 / 1e3
+        log(f"7B decode step, 16 slots, span {span}: wall {wall:.2f} ms/step, "
+            f"host issue {issue / 8 * 1e3:.2f} ms/step, device busy "
+            f"{busy:.2f} ms/step ({100 * (1 - busy / wall):.0f}% idle) over "
+            f"{sum(e.count for e in kern) / 4:.0f} kernels/step; top 8:")
+        for e in kern[:8]:
+            log(f"  {e.self_device_time_total / 4 / 1e3:8.3f} ms/step "
+                f"{e.count / 4:6.1f}/step {e.key[:70]}")
+        tiled = sum(e.self_device_time_total for e in kern
+                    if "tiled_" in e.key) / 4 / layers / 1e3
+        if span == SEQ7B:
+            # every step reads rows 0..pos of each slot (pos grows by one
+            # per step; the first step's rows are counted)
+            n = live_rows(pos, span) * cfg.n_kv_heads * 2 * (cfg.head_dim + 4)
+            log(f"  K9 device time per layer {tiled:.4f} ms; its bound "
+                f"{n / 1e6:.1f} MB of live K/V and scales = "
+                f"{n / hbm_gbs / 1e6:.4f} ms at the measured {hbm_gbs:.0f} "
+                f"GB/s, {n / HBM_BPS * 1e3:.4f} ms at 3,350 GB/s")
+    toks = rng.integers(0, cfg.vocab_size, (1, engine_mod.PREFILL_CHUNK))
+    for start in (0, SEQ7B - engine_mod.PREFILL_CHUNK):
+        span = llm._span_bucket(start + engine_mod.PREFILL_CHUNK)
+        llm._prefill(toks, 0, start, engine_mod.PREFILL_CHUNK - 1, span)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            llm._prefill(toks, 0, start, engine_mod.PREFILL_CHUNK - 1, span)
+        torch.cuda.synchronize()
+        log(f"7B prefill of a {engine_mod.PREFILL_CHUNK}-token chunk at "
+            f"{start}, span {span}: "
+            f"{(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
+
+
+def long_span_check(cpu: tuple, llm: LLM, seed: int) -> None:
+    """The t = 1 route past the envelope (K3 + K9) and the t = 8 f32 arm,
+    2 layers, card vs the CPU port: the card prefills LONG_PROMPT tokens
+    into a one-slot 4,096-row cache in 512-token chunks; the cache is
+    copied to the CPU; one t = 1 and one t = 8 step at span 4096 run on
+    both, logits within TOL_LOGITS. The card's t = 1 step must launch K9
+    and no K4, its t = 8 step neither."""
+    cfg, params = cpu
+    card = _first_layers(llm.params, 2)
+    host = _first_layers(params, 2)
+    cache = init_kv_cache(llm.cfg, 1, SEQ7B, DEVICE)[:2]
+    ids = _prompt(seed + 3, LONG_PROMPT)
+    for off in range(0, LONG_PROMPT, engine_mod.PREFILL_CHUNK):
+        toks = ids[:, off:off + engine_mod.PREFILL_CHUNK]
+        forward(card, llm.cfg, torch.from_numpy(toks).to(DEVICE),
+                torch.tensor([off], dtype=torch.int32, device=DEVICE), cache,
+                MMOpts(), span=llm._span_bucket(off + toks.shape[1]))
+    host_cache = [{n: c.cpu() for n, c in layer.items()} for layer in cache]
+    p = LONG_PROMPT
+    for t in (1, 8):
+        toks = _prompt(seed + 4 + t, t)
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        got, _ = forward(card, llm.cfg, torch.from_numpy(toks).to(DEVICE),
+                         torch.tensor([p], dtype=torch.int32, device=DEVICE),
+                         cache, MMOpts(), span=SEQ7B)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        ref, _ = forward(host, cfg, torch.from_numpy(toks),
+                         torch.tensor([p], dtype=torch.int32), host_cache,
+                         MMOpts(), span=SEQ7B)
+        err, rel = rel_err(got.cpu(), ref)
+        k4, k9 = launches["decode_attention"], launches["decode_attention_tiled"]
+        log(f"long-span check, 2 layers, t={t} at pos {p}, span {SEQ7B}: "
+            f"card vs CPU max|d|={err:.3e} rel={rel:.2e} (tol {TOL_LOGITS:g});"
+            f" launches K3 {launches['kv_cache_insert']}, K4 {k4}, K9 {k9}")
+        if not torch.isfinite(got).all() or rel > TOL_LOGITS:
+            raise AssertionError(f"long-span t={t}: card disagrees with CPU")
+        if k4 or (k9 > 0) != (t == 1):
+            raise AssertionError(f"long-span t={t} took the wrong route: "
+                                 f"K4 {k4}, K9 {k9}")
+        p += t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="split a decode step instead of the smoke run")
+    ap.add_argument("--write", choices=sorted(CHECKPOINTS),
+                    help=argparse.SUPPRESS)   # a checkpoint writer's child
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if args.write:
+        write_checkpoint(args.seed, args.write)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -774,19 +1155,34 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     check_toolchain()
-    with phase("build native codecs and kernels"):
+    with phase("build native codecs"):
         build_native_codecs()
-        build_kernels()
-    if args.profile:
-        profile_decode(checkpoint(args.seed, GGMLType.Q5_K, "q5km"),
-                       args.seed)
-        return 0
-    with phase("write or reuse the checkpoints"):
-        path4 = checkpoint(args.seed, GGMLType.Q4_K, "q4km")
-        path5 = checkpoint(args.seed, GGMLType.Q5_K, "q5km")
+    writers = Writers(args.seed, ("q5km",) if args.profile
+                      else ("q4km", "q5km", "q4km_7b"))
+    try:
+        with phase("build kernels"):
+            build_kernels()
+        if args.profile:
+            profile_decode(writers.wait("q5km"), args.seed)
+            return 0
+        kernels = smoke(args.seed, writers)
+    finally:
+        writers.stop()
+    log(smi)          # again, beside the numbers at the end of the output
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def smoke(seed: int, writers: Writers) -> list:
+    """Every phase of the smoke run; returns the {"kernels": ...} list."""
+    with phase("write or reuse the TinyLlama checkpoints"):
+        path4, path5 = writers.wait("q4km"), writers.wait("q5km")
     rep = Report()
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(args.seed)
+    gen.manual_seed(seed)
 
     log("== Q4_K_M, bf16 activations (K1-K4) ==")
     with phase("load Q4_K_M"):
@@ -794,11 +1190,12 @@ def main() -> int:
     with phase("K1-K4 vs plain"):
         log("kernel vs plain PyTorch version (bf16 operands, CUDA-event times):")
         compare_mmq(llm4.params, gen, rep)
-        compare_attention(gen, rep)
+        compare_attention(gen, rep, h=CFG.n_heads, kvh=CFG.n_kv_heads,
+                          hd=CFG.head_dim, s=MAX_SEQ, spans=ATTN_SPANS)
     with phase("serve Q4_K_M"):
-        launches = serve(llm4, args.seed, Q4KM_KERNELS)
+        launches = serve(llm4, seed, Q4KM_KERNELS)
     with phase("reference check Q4_K_M"):
-        reference_check(path4, llm4, args.seed,
+        reference_check(path4, llm4, seed,
                         ((2, MMOpts(), TOL_LOGITS),
                          (CFG.n_layers, MMOpts(), TOL_LOGITS_22)))
 
@@ -814,14 +1211,14 @@ def main() -> int:
     del llm4
     torch.cuda.empty_cache()
     with phase("serve Q5_K_M under act_quant"):
-        launches.update({k: v for k, v in serve(llm5, args.seed,
+        launches.update({k: v for k, v in serve(llm5, seed,
                                                 Q5KM_KERNELS).items()
                          if k in Q5KM_KERNELS})
     with phase("reference check Q5_K_M under act_quant"):
         # the same weights with bf16 activations first: the act_quant
         # bound is wider than that path's by the quantization alone
         cpu5, logits = reference_check(
-            path5, llm5, args.seed,
+            path5, llm5, seed,
             ((2, MMOpts(precision="high"), TOL_LOGITS),
              (2, ACT_QUANT, TOL_LOGITS_ACT_QUANT),
              (CFG.n_layers, ACT_QUANT, None)))
@@ -829,26 +1226,66 @@ def main() -> int:
         log(f"a wrong route at 2 layers (card without act_quant vs CPU "
             f"under it): max|d|={err:.3e} rel={rel:.2e}")
         for t in ROUTE_TS:
-            projection_check(cpu5, llm5, args.seed, t)
+            projection_check(cpu5, llm5, seed, t)
     with phase("perplexity"):
-        perplexity_check(path5, llm5, cpu5, args.seed)
+        perplexity_check(path5, llm5, cpu5, seed)
+    del llm5, cpu5
+    torch.cuda.empty_cache()
+
+    log("== Llama-2-7B Q4_K_M, bf16 activations, 4,096-token context "
+        "(K1-K4, K9) ==")
+    with phase("K9, and K3/K4 at hd 128, vs plain"):
+        hbm = hbm_read_gbs()
+        log(f"HBM read (x.sum() of 4 GiB f32): {hbm:.0f} GB/s")
+        compare_tiled(gen, rep)
+        compare_attention(gen, rep, h=CFG7B.n_heads, kvh=CFG7B.n_kv_heads,
+                          hd=CFG7B.head_dim, s=SEQ7B, spans=ATTN_SPANS_7B,
+                          tag="kvh32 hd128 ")
+    with phase("write or reuse the 7B checkpoint (wait)"):
+        path7 = writers.wait("q4km_7b")
+    with phase("load Llama-2-7B"):
+        llm7 = LLM(path7, max_batch=MAX_BATCH, max_seq=SEQ7B, device=DEVICE)
+        emb = llm7.params["token_embd"]
+        kv = sum(nbytes(*layer.values()) for layer in llm7.cache)
+        log(f"token_embd resident as {emb.dtype} {tuple(emb.shape)} "
+            f"({nbytes(emb) / 2 ** 20:.0f} MiB); KV cache "
+            f"{kv / 1e9:.2f} GB for {MAX_BATCH} slots x {SEQ7B} rows; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        if not isinstance(emb, torch.Tensor):
+            raise AssertionError("the 7B embedding is not kept dequantized")
+    with phase("K1/K2 vs plain at the 7B shapes"):
+        compare_mmq(llm7.params, gen, rep)
+    with phase("serve 7B round A (spans <= 512)"):
+        launches.update({k: v for k, v in serve(
+            llm7, seed, ROUND_A_KERNELS, ROUND_A).items()
+            if k in ROUND_A_KERNELS})
+    with phase("serve 7B round B (decode at span 4096)"):
+        launches.update({k: v for k, v in serve(
+            llm7, seed + 1, ROUND_B_KERNELS, ROUND_B).items()
+            if k in ROUND_B_KERNELS})
+    with phase("7B decode step and prefill chunk"):
+        profile_7b_decode(llm7, seed, hbm)
+    with phase("reference check 7B (2 layers)"):
+        cpu7, _ = reference_check(path7, llm7, seed,
+                                  ((2, MMOpts(), TOL_LOGITS),))
+        long_span_check(cpu7, llm7, seed)
 
     # "ms"/"plain_ms": CUDA events around back-to-back calls (host time
     # included where a wrapper's host work outlasts its kernels);
     # "device_ms"/"plain_device_ms": profiler kernel time per call (null
-    # where the profiler recorded none)
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": rep.err[name], "ms": rep.times[name][0],
-                "plain_ms": rep.times[name][1],
-                "device_ms": rep.times[name][2],
-                "plain_device_ms": rep.times[name][3]}
-               for name, (src, replaces) in KERNELS.items()]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    # where the profiler recorded none); "bound_ms": the larger of the
+    # bytes over 3.35 TB/s and the operations over their peak;
+    # "library_ms": one PyTorch call computing the same function (null
+    # where there is none)
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": replaces, "shape": HEADLINE[name],
+             "launches": launches[name], "max_abs_err": rep.err[name],
+             "ms": rep.times[name][0], "plain_ms": rep.times[name][1],
+             "bound_ms": rep.bound[name][0], "bound_by": rep.bound[name][1],
+             "library_ms": rep.library[name],
+             "device_ms": rep.times[name][2],
+             "plain_device_ms": rep.times[name][3]}
+            for name, (src, replaces) in KERNELS.items()]
 
 
 if __name__ == "__main__":

@@ -1,10 +1,15 @@
-"""INT8 KV-cache insert (K3) and GQA decode attention (K4), with their
-plain PyTorch versions.
+"""INT8 KV-cache insert (K3), GQA decode attention (K4) and flash-decoding
+over long spans (K9), with their plain PyTorch versions.
 
 Counterpart of `gguf_tpu/ops/attention.py`: `kv_cache_insert` (Pallas
-`_insert_kernel`), `decode_attention` (`_attn_kernel`) and
+`_insert_kernel`), `decode_attention` (`_attn_kernel`),
+`decode_attention_tiled` (`_attn_tiled_kernel`) and
 `decode_attention_update` (the split pair, or `_fused_attn_kernel` at
 t = 1). The CUDA source is `gguf_tpu_torch/csrc/attention.cu`.
+
+Routing follows the reference: at t = 1, once KVH * span * hd exceeds
+`PALLAS_ATTN_MAX_ELEMS` and span is a multiple of 256, `decode_attention`
+(and so `decode_attention_update`) delegates to `decode_attention_tiled`.
 
 Layouts match the reference: q (B, H, t, hd); new K/V rows (B, KVH, t, hd)
 float32; the cache k/v (B, KVH, S, hd) int8 with per-row float32 scales
@@ -20,9 +25,10 @@ and the scale in f32 — then codes = clip(rint(x / scale), ±127) with an
 IEEE division and round-half-to-even. A position outside [0, S) writes
 nothing: inactive engine slots step at pos = max_seq.
 
-`kv_cache_insert.launches` counts K3 launches and
+`kv_cache_insert.launches` counts K3 launches,
 `decode_attention.launches` counts K4 launches, whether K4 runs read-only
-or with its fused t = 1 insert.
+or with its fused t = 1 insert, and `decode_attention_tiled.launches`
+counts K9 calls (each is three CUDA launches: scores, p . v, combine).
 """
 
 from __future__ import annotations
@@ -39,8 +45,15 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
     "kv_cache_insert_launch": [_VP] * 7 + [_I] * 5 + [_VP],
     "decode_attention_launch": [_VP] * 9 + [_I] * 7 + [_F, _F, _I, _I, _VP],
+    "decode_attention_tiled_launch": [_VP] * 8 + [_I] * 6
+    + [_F, _F, _I, _I, _VP],
 }
 HEAD_DIMS = (64, 128)
+# single-tile envelope (cache elements per batch element) past which the
+# reference sends t = 1 to its tiled kernel (`gguf_tpu/ops/attention.py`
+# PALLAS_ATTN_MAX_ELEMS; `models/llama.py:attention` keys off it too)
+PALLAS_ATTN_MAX_ELEMS = 2 ** 21
+TILE = 256                  # cache rows per tile of the tiled form
 
 
 def quantize_kv(x: torch.Tensor):
@@ -202,11 +215,25 @@ def _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *, t,
     return out
 
 
+def _takes_tiled(k, t: int, span: int | None) -> bool:
+    """The reference's delegation to the tiled kernel: t = 1, past the
+    single-tile envelope, span a multiple of the tile."""
+    _, kvh, s, hd = k.shape
+    span = s if span is None else min(span, s)
+    return (t == 1 and kvh * span * hd > PALLAS_ATTN_MAX_ELEMS
+            and span % TILE == 0)
+
+
 def decode_attention(q, k, k_scale, v, v_scale, pos, *, t: int,
                      precision: str = "fast", span: int | None = None,
                      window: int = 0, softcap: float = 0.0):
     """GQA attention of t new tokens per sequence over the first `span`
-    cache rows (their K/V already inserted). Returns (B, H, t, hd) f32."""
+    cache rows (their K/V already inserted). Returns (B, H, t, hd) f32.
+    Single tokens past the envelope take `decode_attention_tiled`."""
+    if _takes_tiled(k, t, span):
+        return decode_attention_tiled(q, k, k_scale, v, v_scale, pos,
+                                      precision=precision, span=span,
+                                      window=window, softcap=softcap)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, k_scale, v, v_scale, pos, t=t,
                                       precision=precision, span=span,
@@ -226,9 +253,9 @@ def decode_attention_update(q, k_new, v_new, k, k_scale, v, v_scale, pos,
                             span: int | None = None, window: int = 0,
                             softcap: float = 0.0):
     """Insert t new K/V rows, then attend: (out, k, k_scale, v, v_scale).
-    On the card t = 1 is ONE K4 launch (insert fused in); t > 1 is K3 then
-    K4."""
-    if q.device.type == "cuda" and t == 1:
+    On the card t = 1 is ONE K4 launch (insert fused in), or K3 then K9
+    past the single-tile envelope; t > 1 is K3 then K4."""
+    if q.device.type == "cuda" and t == 1 and not _takes_tiled(k, t, span):
         b, kvh, _, hd = k.shape
         _check_new(k_new, b, kvh, 1, hd)
         _check_new(v_new, b, kvh, 1, hd)
@@ -241,3 +268,91 @@ def decode_attention_update(q, k_new, v_new, k, k_scale, v, v_scale, pos,
                            precision=precision, span=span, window=window,
                            softcap=softcap)
     return out, k, k_scale, v, v_scale
+
+
+# ------------------------------------------------ K9: tiled (long spans) ---
+
+
+def decode_attention_tiled_plain(q, k, k_scale, v, v_scale, pos, *,
+                                 precision: str = "fast",
+                                 span: int | None = None, window: int = 0,
+                                 softcap: float = 0.0):
+    """Plain version of K9, in the reference kernel's order: 256-row tiles
+    in turn with an online softmax (running max m, sum l, accumulator),
+    p = exp(s - m) against the running max, (p * v_scale) rounded to the
+    operand type times v, out = acc / l. A fully masked leading tile adds
+    p = 1 everywhere and is wiped by alpha = 0 at the first live one, as
+    there. Returns (B, H, 1, hd) float32."""
+    b, h, _, hd = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    g = h // kvh
+    span = s if span is None else min(span, s)
+    dt = torch.bfloat16 if precision == "fast" else torch.float32
+    qr = q.reshape(b, kvh, g, hd).to(dt).float()
+    lim = pos.to(torch.long)[:, None, None, None]
+    m = torch.full((b, kvh, g, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, g, 1), device=q.device)
+    acc = torch.zeros((b, kvh, g, hd), device=q.device)
+    for t0 in range(0, span, TILE):
+        rows = slice(t0, t0 + TILE)
+        sc = qr @ k[:, :, rows].float().transpose(-1, -2)
+        sc = sc * (k_scale[:, :, None, rows] * (1.0 / hd ** 0.5))
+        if softcap:
+            sc = softcap * torch.tanh(sc * (1.0 / softcap))
+        col = torch.arange(t0, t0 + TILE, device=q.device)
+        live = col <= lim
+        if window:
+            live = live & (col > lim - window)
+        sc = torch.where(live, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = (p * v_scale[:, :, None, rows]).to(dt).float()
+        acc = acc * alpha + pv @ v[:, :, rows].float()
+        m = m_new
+    return (acc / l).reshape(b, h, 1, hd)
+
+
+def decode_attention_tiled(q, k, k_scale, v, v_scale, pos, *,
+                           precision: str = "fast", span: int | None = None,
+                           window: int = 0, softcap: float = 0.0):
+    """Single-token GQA attention over the first `span` cache rows in
+    256-row tiles (span a multiple of 256): the contract of
+    `decode_attention` at t = 1, for spans past the single-tile envelope.
+    q (B, H, 1, hd) with rope applied; returns (B, H, 1, hd) float32. On
+    the card one call is K9's split-span grid (three launches)."""
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
+    h = q.shape[1]
+    _check_device(k, q)
+    if q.shape != (b, h, 1, hd) or h % kvh:
+        raise ValueError(f"q {tuple(q.shape)} vs cache {tuple(k.shape)}")
+    span = s if span is None else min(span, s)
+    if span % TILE:
+        raise ValueError(f"span {span} must be a multiple of {TILE}")
+    kw = dict(precision=precision, span=span, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return decode_attention_tiled_plain(q, k, k_scale, v, v_scale, pos,
+                                            **kw)
+    g = h // kvh
+    if q.device.type != "cuda" or hd not in HEAD_DIMS \
+            or g * hd * 4 > 48 * 1024:
+        raise ValueError(f"decode_attention_tiled: cuda, hd in {HEAD_DIMS} "
+                         f"and g*hd*4 <= 48 KiB, got {q.device} hd={hd} g={g}")
+    qf = q.float().contiguous()
+    p = pos.to(torch.int32).contiguous()
+    # scores, tile maxes, (m, l) and acc partials (csrc/attention.cu)
+    ws = torch.empty(b * kvh * g * (span + span // TILE * (3 + hd)),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, 1, hd), dtype=torch.float32, device=q.device)
+    err = _lib().decode_attention_tiled_launch(
+        build.ptr(qf), build.ptr(k), build.ptr(k_scale), build.ptr(v),
+        build.ptr(v_scale), build.ptr(p), build.ptr(ws), build.ptr(out), b,
+        kvh, g, s, span, hd, 1.0 / hd ** 0.5, float(softcap), int(window),
+        int(precision == "fast"), build.stream_ptr())
+    build.check(err, "decode_attention_tiled")
+    decode_attention_tiled.launches += 1
+    return out
+
+
+decode_attention_tiled.launches = 0

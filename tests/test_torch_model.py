@@ -93,6 +93,19 @@ def test_writer_byte_identical_to_jax_q5_k_m(tmp_path):
         assert fa.read() == fb.read()
 
 
+def test_writer_byte_identical_to_jax_mha_hd128(tmp_path):
+    """Llama-2-7B's attention geometry: 32 heads and 32 KV heads of 128
+    (dim cut to 512 through head_dim_override, so the file stays small)."""
+    shape = dict(vocab_size=256, dim=512, n_layers=1, n_heads=32,
+                 n_kv_heads=32, ffn_dim=256, max_seq_len=4096,
+                 head_dim_override=128)
+    a, b = str(tmp_path / "port.gguf"), str(tmp_path / "jax.gguf")
+    write_random_llama_gguf(a, LlamaConfig(**shape), seed=7)
+    jax_write(b, JaxLlamaConfig(**shape), seed=7)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
+
 def _assert_same(got, ref, where):
     if isinstance(ref, QuantWeight):
         assert isinstance(got, QuantWeight), where
