@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's nine hand-written CUDA kernels from gguf_tpu_torch/csrc
-(one nvcc per source, all at once) while child processes write (or
-reuse, under the temp dir) three random checkpoints at full width and
-depth: TinyLlama-1.1B as Q4_K_M (Q4_K projections and embedding, Q6_K
-head) and as Q5_K_M (Q5_K projections and embedding, Q6_K head), and
-Llama-2-7B as Q4_K_M. It then runs the main paths below, each with every
-kernel's launch counter reset just before it and read just after:
+Builds the port's GGUF quantizer core (gcc) and then, while child
+processes write (or reuse, under the temp dir) the random checkpoints
+below, its eleven hand-written CUDA kernels from gguf_tpu_torch/csrc (one
+nvcc per source, all at once). Checkpoints, each at full width with
+random weights from a seed: TinyLlama-1.1B (22 layers) as Q4_K_M (Q4_K
+projections and embedding, Q6_K head), Q5_K_M (Q5_K, Q6_K head), Q8_0
+and Q4_0 (every matrix in the format, head and embedding included);
+2-layer TinyLlama-width Q4_1, Q5_0 and Q5_1; and Llama-2-7B as Q4_K_M.
+It then runs the main paths below, each with every kernel's launch
+counter reset just before it and read just after:
 
 Q4_K_M with bf16 activations (kernels K1-K4):
 1. holds K1-K4 against their plain PyTorch versions on the card, at the
@@ -38,24 +41,40 @@ precision="high")` (kernels K2-K8):
    window=512)` and holds the card's mean NLL over one 256-token window,
    2 layers, within 1e-2 nats of the CPU run's.
 
+The 32-element-block formats (kernels K10 `mmq_q8_0` and K11
+`mmq_legacy`, with K3, K4 and, under act_quant, K6):
+8. holds K10 against its plain version at every TinyLlama projection and
+   the head and K11 for Q4_0, Q4_1, Q5_0 and Q5_1 at gate_up and down,
+   n = 1, 16, 64, 65, 512, "fast" (1e-3 of max|ref|) and "high" (1e-5),
+   on bf16 activations and fed K6's output (K11 with its fp16 block
+   sums), and K10 through `compat.mmq_q8_0` at M, N in {1, 4, 16} and
+   K = 32, 64, 96, 128;
+9. serves the 24 prompts through the 22-layer Q8_0 and then the Q4_0
+   checkpoint (bf16 activations), requiring launches of K10 (then K11),
+   K3 and K4 and none of K1, K2, K7 or K8, then splits a 16-slot decode
+   step of each at span 256 (host clock and `torch.profiler`);
+10. checks 2 layers of each of the five formats against the CPU run
+   (logits within 1e-2), and for Q8_0 and Q5_1 every projection of a
+   16- and a 64-token act_quant prefill as in 6 (routes K6+K10, K6+K11).
+
 Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 (kernels K1-K4 and K9, flash-decoding):
-8. holds K9 against its plain version ("fast" and "high", 1e-3 of
+11. holds K9 against its plain version ("fast" and "high", 1e-3 of
    max|ref|) at the 7B geometry (16 slots, 32 heads of 128, spans 1024,
    2048 and 4096, positions 0, 255, 256, random ones and an inactive slot
    at pos = 4096), with a sliding window and softcap, and at the
    TinyLlama geometry (8 query heads per KV head, hd 64, span 2048); then
    K3/K4 at hd 128 with one query head per KV head and K1/K2 at every 7B
    projection and the head, against their plain versions;
-9. serves two rounds of 16 requests through `LLM(max_batch=16,
+12. serves two rounds of 16 requests through `LLM(max_batch=16,
    max_seq=4096)`, 32 greedy tokens each: round A (prompts of 5..440
    tokens, every decode step at span <= 512: K1-K4) and round B (600..3,900
    tokens: prefill crosses every span bucket, decode runs at span 4096 on
    K3 + K9), every logit finite;
-10. times a 16-slot decode step at span 512 and at span 4096 (host clock
+13. times a 16-slot decode step at span 512 and at span 4096 (host clock
    and `torch.profiler`: device time, K9 per layer beside its bound) and
    a 512-token prefill chunk;
-11. checks 2 layers against the CPU run of the same port: the logits of a
+14. checks 2 layers against the CPU run of the same port: the logits of a
    16-token prefill, then a 2,100-token prefill on the card whose cache
    is copied to the CPU, and one t = 1 and one t = 8 step at span 4096 on
    both (1e-2 of max|ref|); the card's t = 1 step must launch K9 and no
@@ -66,21 +85,20 @@ checkpoint with bf16 activations and under act_quant (host clock and
 `torch.profiler`), and checks nothing.
 
 Prints the card's name and power limit, a per-shape table, seconds per
-phase, one JSON line {"kernels": [...]} (per kernel its headline shape's
-times, its bound from this run's inputs and, where one PyTorch call
-computes the same function, that call's time) and, last, {"ok": true,
-"device": {...}}. Any failed check raises and the script exits nonzero.
-Needs one CUDA device, nvcc, gcc and make (the native GGUF quantizer is
-built with make).
+phase and in total, one JSON line {"kernels": [...]} (per kernel its
+headline shape's times, its bound from this run's inputs and, where one
+PyTorch call computes the same function, that call's time) and, last,
+{"ok": true, "device": {...}}. Any failed check raises and the script
+exits nonzero. Needs one CUDA device, nvcc and gcc.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -91,6 +109,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gguf_tpu_torch import compat
 from gguf_tpu_torch.engine import LLM, SamplerConfig
 from gguf_tpu_torch.engine import engine as engine_mod
 from gguf_tpu_torch.eval import perplexity_of_gguf, sequence_nll
@@ -109,15 +128,19 @@ from gguf_tpu_torch.ops.attention import (_attend_cuda, decode_attention,
                                           decode_attention_update,
                                           kv_cache_insert,
                                           kv_cache_insert_plain)
+from gguf_tpu_torch.ops.mmq_legacy import mmq_legacy, mmq_legacy_plain
 from gguf_tpu_torch.ops.mmq_q4_k import (mmq_i8, mmq_i8_plain, mmq_q4_k,
                                          mmq_q4_k_plain)
 from gguf_tpu_torch.ops.mmq_q5_k import mmq_q5_k, mmq_q5_k_plain
 from gguf_tpu_torch.ops.mmq_q6_k import mmq_q6_k, mmq_q6_k_plain
+from gguf_tpu_torch.ops.mmq_q8_0 import mmq_q8_0, mmq_q8_0_plain
+from gguf_tpu_torch.quant import QUANTIZERS, QuantWeight
 
 # TinyLlama-1.1B (benchmarks/suite.py): vocab 32000, dim 2048, 22 layers,
 # 32 heads, 4 KV heads (head_dim 64), ffn 5632
 CFG = LlamaConfig(vocab_size=32000, dim=2048, n_layers=22, n_heads=32,
                   n_kv_heads=4, ffn_dim=5632, max_seq_len=2048)
+CFG2 = dataclasses.replace(CFG, n_layers=2)    # the 2-layer reference files
 MAX_BATCH, MAX_SEQ, NEW_TOKENS = 16, 2048, 32
 DEVICE = "cuda"
 PROMPT_LENS = (5, 7, 8, 12, 16, 24, 33, 48, 60, 64, 80, 100, 128, 150, 175,
@@ -136,6 +159,8 @@ ROUND_B = (600, 800, 1000, 1200, 1400, 1700, 2000, 2100, 2300, 2600, 2900,
 LONG_PROMPT = 2100             # the long-span reference check's prefill
 TILED_SPANS = (1024, 2048, 4096)
 MMQ_NS = (1, 16, 512)
+BLOCK32_NS = (1, 16, 64, 65, 512)  # both sides of the reference's n <= 64 arm
+COMPAT_MNS, COMPAT_KS = (1, 4, 16), (32, 64, 96, 128)
 ATTN_TS, ATTN_SPANS = (1, 8), (128, 512, 2048)
 ATTN_SPANS_7B = (128, 512)
 Q81_NS, Q81_KS = (1, 16, 64, 512), (2048, 5632)
@@ -186,6 +211,10 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                  "gguf_tpu/ops/mmq_q5_k.py:65"),
     "decode_attention_tiled": ("gguf_tpu_torch/csrc/attention.cu",
                                "gguf_tpu/ops/attention.py:369"),
+    "mmq_q8_0": ("gguf_tpu_torch/csrc/mmq_q8_0.cu",
+                 "gguf_tpu/ops/mmq_q8_0.py:64"),
+    "mmq_legacy": ("gguf_tpu_torch/csrc/mmq_legacy.cu",
+                   "gguf_tpu/ops/mmq_legacy.py:41"),
 }
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
 WRAPPERS = {"mmq_q4_k": mmq_q4_k, "mmq_q6_k": mmq_q6_k,
@@ -194,13 +223,18 @@ WRAPPERS = {"mmq_q4_k": mmq_q4_k, "mmq_q6_k": mmq_q6_k,
             "quantize_q8_1_codes": quantize_q8_1_codes,
             "fake_quantize_q8_1": fake_quantize_q8_1,
             "mmq_i8": mmq_i8, "mmq_q5_k": mmq_q5_k,
-            "decode_attention_tiled": decode_attention_tiled}
+            "decode_attention_tiled": decode_attention_tiled,
+            "mmq_q8_0": mmq_q8_0, "mmq_legacy": mmq_legacy}
 # the kernels each main path must launch; a kernel's "launches" in the
 # {"kernels": ...} line come from the last path that requires it
 Q4KM_KERNELS = ("mmq_q4_k", "mmq_q6_k", "kv_cache_insert", "decode_attention")
 Q5KM_KERNELS = ("mmq_q6_k", "kv_cache_insert", "decode_attention",
                 "quantize_q8_1_codes", "fake_quantize_q8_1", "mmq_i8",
                 "mmq_q5_k")
+Q8_0_KERNELS = ("mmq_q8_0", "kv_cache_insert", "decode_attention")
+Q4_0_KERNELS = ("mmq_legacy", "kv_cache_insert", "decode_attention")
+# the K-quant MMQ kernels, which no projection of a 32-block checkpoint runs
+KQUANT_KERNELS = ("mmq_q4_k", "mmq_q6_k", "mmq_i8", "mmq_q5_k")
 ROUND_A_KERNELS = Q4KM_KERNELS
 ROUND_B_KERNELS = ("mmq_q4_k", "mmq_q6_k", "kv_cache_insert",
                    "decode_attention_tiled")
@@ -213,7 +247,9 @@ HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
             "fake_quantize_q8_1": "n=16 K=2048 bf16",
             "mmq_i8": "q5_k gate_up 11264x2048 n=16",
             "mmq_q5_k": "gate_up 11264x2048 n=16 fast",
-            "decode_attention_tiled": "b16 h32 hd128 span=4096 fast"}
+            "decode_attention_tiled": "b16 h32 hd128 span=4096 fast",
+            "mmq_q8_0": "gate_up 11264x2048 n=16 fast",
+            "mmq_legacy": "q4_0 gate_up 11264x2048 n=16 fast"}
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): a kernel's bound
 # is the larger of its bytes over HBM_BPS and its operations over the peak
 # of their type
@@ -363,26 +399,7 @@ def sdpa_library(q, cache, pos, span: int, precision: str):
 
 
 def check_toolchain() -> None:
-    for tool in ("gcc", "make"):
-        if shutil.which(tool) is None:
-            raise RuntimeError(f"step 'toolchain': {tool} not found (the "
-                               "native GGUF quantizer is built with make/gcc)")
-    log(f"nvcc {build.find_nvcc()}, gcc {shutil.which('gcc')}, "
-        f"cc {shutil.which('cc') or 'missing'}")
-
-
-def build_native_codecs() -> None:
-    """The checkpoint writer quantizes with gguf_tpu's C codec core
-    (csrc/, built by make at first use). Build it here with `CC=gcc` on
-    make's command line: csrc/Makefile's `CC ?= gcc` keeps a `CC` set in
-    the environment, and that compiler may lack OpenMP (`-fopenmp` then
-    fails on a missing libgomp.spec)."""
-    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-    proc = subprocess.run(["make", "-C", csrc, "CC=gcc"], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("step 'native codecs': make -C csrc CC=gcc "
-                           f"failed:\n{proc.stdout}{proc.stderr}")
+    log(f"nvcc {build.find_nvcc()}, gcc {build.find_gcc()}")
 
 
 def build_kernels() -> None:
@@ -399,6 +416,11 @@ def build_kernels() -> None:
 # tag -> (config, projection format, model name in the file name)
 CHECKPOINTS = {"q4km": (CFG, GGMLType.Q4_K, "tinyllama"),
                "q5km": (CFG, GGMLType.Q5_K, "tinyllama"),
+               "q8_0": (CFG, GGMLType.Q8_0, "tinyllama"),
+               "q4_0": (CFG, GGMLType.Q4_0, "tinyllama"),
+               "q4_1_2l": (CFG2, GGMLType.Q4_1, "tinyllama"),
+               "q5_0_2l": (CFG2, GGMLType.Q5_0, "tinyllama"),
+               "q5_1_2l": (CFG2, GGMLType.Q5_1, "tinyllama"),
                "q4km_7b": (CFG7B, GGMLType.Q4_K, "llama2_7b")}
 
 
@@ -770,11 +792,77 @@ def compare_head_act_quant(params5: dict, gen: torch.Generator,
                 lambda: mmq_q6_k_plain(w, x, precision="high"))
 
 
+def compare_block32(layer8: dict, head8, legacy: dict,
+                    gen: torch.Generator, rep: Report) -> None:
+    """K10 at every TinyLlama projection and the head of the Q8_0
+    checkpoint, and K11 at gate_up and down of each legacy format
+    (`legacy`: format -> layer), against their plain versions: bf16
+    activations at BLOCK32_NS, "fast" and "high", and fed K6's output
+    (n = 16, 512, "high"; K11 then rounds its block sums through fp16)."""
+    cases = [("mmq_q8_0", f"{key} ", layer8[key])
+             for key in ("wqkv", "wo", "gate_up", "down")]
+    cases.append(("mmq_q8_0", "head ", head8))
+    cases += [("mmq_legacy", f"{fmt} {key} ", layer[key])
+              for fmt, layer in legacy.items() for key in ("gate_up", "down")]
+    for kernel, label, w in cases:
+        fn = mmq_q8_0 if kernel == "mmq_q8_0" else mmq_legacy
+        shape = f"{label}{w.shape[0]}x{w.shape[1]}"
+
+        def plain(x, prec, act_quant=False):
+            if act_quant:
+                x = fake_quantize_q8_1_plain(x)
+            if kernel == "mmq_q8_0":
+                return mmq_q8_0_plain(w, x, precision=prec)
+            return mmq_legacy_plain(w, x, precision=prec, fp16_bsum=act_quant)
+
+        for n in BLOCK32_NS:
+            x = torch.randn((n, w.shape[1]), generator=gen,
+                            device=DEVICE).bfloat16()
+            for prec in ("fast", "high"):
+                got = fn(w, x, precision=prec)
+                err, rel = rel_err(got, plain(x, prec))
+                rep.add(kernel, f"{shape} n={n} {prec}", err, rel,
+                        TOL_MMQ if prec == "fast" else TOL_HIGH,
+                        lambda: fn(w, x, precision=prec),
+                        lambda: plain(x, prec),
+                        work=_mmq_work(w, x, got,
+                                       "bf16" if prec == "fast" else "f32"),
+                        library=lambda: matmul_library(w, x))
+        for n in (16, 512):
+            x = _q8_1_input(gen, n, w.shape[1])
+            err, rel = rel_err(fn(w, x, precision="high", act_quant=True),
+                               plain(x, "high", act_quant=True))
+            rep.add(kernel, f"{shape} n={n} high act_quant", err, rel,
+                    TOL_HIGH)
+
+
+def compare_compat(seed: int, gen: torch.Generator, rep: Report) -> None:
+    """K10 through the reference's calling convention,
+    `compat.mmq_q8_0(A, B, M, N, K)` (act_quant and "high" by default),
+    over the reference's sweep: M, N in COMPAT_MNS, K in COMPAT_KS (K = 32
+    and 96 end on a half step of the kernel's K loop)."""
+    rng = np.random.default_rng(seed)
+    for m in COMPAT_MNS:
+        for k in COMPAT_KS:
+            a = QUANTIZERS["q8_0"](rng.standard_normal((m, k)))
+            w = QuantWeight.from_blocks("q8_0", a, (m, k), DEVICE)
+            for n in COMPAT_MNS:
+                b = torch.randn((n, k), generator=gen, device=DEVICE)
+                for act_quant in (True, False):
+                    got = compat.mmq_q8_0(a, b, m, n, k, device=DEVICE,
+                                          act_quant=act_quant)
+                    x = fake_quantize_q8_1_plain(b) if act_quant else b
+                    err, rel = rel_err(got, mmq_q8_0_plain(w, x))
+                    rep.add("mmq_q8_0", f"compat M={m} N={n} K={k} "
+                            f"act_quant={act_quant}", err, rel, TOL_HIGH)
+
+
 def serve(llm: LLM, seed: int, required: tuple,
-          prompt_lens: tuple = PROMPT_LENS) -> dict:
+          prompt_lens: tuple = PROMPT_LENS, forbidden: tuple = ()) -> dict:
     """A main path: continuous batching over seeded prompts of
     `prompt_lens` tokens, every logit checked finite on the device (no host
-    sync per step), and every kernel in `required` launched."""
+    sync per step), every kernel in `required` launched and none in
+    `forbidden`."""
     rng = np.random.default_rng(seed)
     prompts = [[int(v) for v in rng.integers(0, llm.cfg.vocab_size, n)]
                for n in prompt_lens]
@@ -806,6 +894,9 @@ def serve(llm: LLM, seed: int, required: tuple,
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    stray = [k for k in forbidden if launches[k]]
+    if stray:
+        raise AssertionError(f"kernels launched off this path's route: {stray}")
     st = res[0].stats
     chunks = sum(-(-n // engine_mod.PREFILL_CHUNK) for n in prompt_lens)
     log(f"served {len(res)} requests x {NEW_TOKENS} tokens, {n_fwd[0]} "
@@ -884,8 +975,10 @@ def recorded_mmq(calls: list):
 
 def _expected_route(fmt: str, n: int) -> set:
     """The kernels the JAX package's act_quant routing runs, "high"."""
-    if fmt == "q6_k":
-        return {"fake_quantize_q8_1", "mmq_q6_k"}
+    if fmt in ("q6_k", "q8_0"):
+        return {"fake_quantize_q8_1", "mmq_" + fmt}
+    if fmt in ("q4_0", "q4_1", "q5_0", "q5_1"):
+        return {"fake_quantize_q8_1", "mmq_legacy"}
     if n <= 16:
         return {"quantize_q8_1_codes", "mmq_i8"}
     return {"fake_quantize_q8_1", "mmq_" + fmt}
@@ -1025,15 +1118,46 @@ def hbm_read_gbs() -> float:
     return 4 * 2 ** 30 / ms / 1e6
 
 
+def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
+                 label: str, gen: torch.Generator) -> list:
+    """One 16-slot decode step's split at `pos` and `span`: the host clock
+    over 8 steps ending in a sync, then `torch.profiler` over 4 steps
+    (device busy time, idle share, the top kernels). Returns the
+    profiler's CUDA events."""
+    sampler = SamplerConfig()
+    llm._decode(tok, pos, sampler, 2, span, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llm._decode(tok, pos, sampler, 8, span, gen)
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 8 * 1e3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        llm._decode(tok, pos, sampler, 4, span, gen)
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kern) / 4 / 1e3
+    log(f"{label}: wall {wall:.2f} ms/step, host issue "
+        f"{issue / 8 * 1e3:.2f} ms/step, device busy {busy:.2f} ms/step "
+        f"({100 * (1 - busy / wall):.0f}% idle) over "
+        f"{sum(e.count for e in kern) / 4:.0f} kernels/step; top 8:")
+    for e in kern[:8]:
+        log(f"  {e.self_device_time_total / 4 / 1e3:8.3f} ms/step "
+            f"{e.count / 4:6.1f}/step {e.key[:70]}")
+    return kern
+
+
 def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
     """Where the 7B decode step goes: 16 live slots at round A's and at
-    round B's positions (spans 512 and 4096). Per step the host clock over
-    8 steps ending in a sync, then `torch.profiler` over 4 steps: device
-    busy time and the top kernels; K9's device time per layer beside its
-    bound (the live K/V rows and their scales over the HBM read measured
-    in this run and over the published 3.35 TB/s). Then one 512-token
-    prefill chunk at the start of a slot and one at span 4096."""
-    sampler, gen = SamplerConfig(), torch.Generator(device=DEVICE)
+    round B's positions (spans 512 and 4096), split by `decode_split`;
+    K9's device time per layer beside its bound (the live K/V rows and
+    their scales over the HBM read measured in this run and over the
+    published 3.35 TB/s). Then one 512-token prefill chunk at the start
+    of a slot and one at span 4096."""
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
     cfg, layers = llm.cfg, llm.cfg.n_layers
@@ -1042,28 +1166,8 @@ def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
     for lens, span in ((ROUND_A, 512), (ROUND_B, SEQ7B)):
         pos = torch.tensor([lens[i % len(lens)] for i in range(MAX_BATCH)],
                            dtype=torch.int32, device=DEVICE)
-        llm._decode(tok, pos, sampler, 2, span, gen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        llm._decode(tok, pos, sampler, 8, span, gen)
-        issue = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 8 * 1e3
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            llm._decode(tok, pos, sampler, 4, span, gen)
-            torch.cuda.synchronize()
-        kern = sorted((e for e in prof.key_averages()
-                       if e.device_type.name == "CUDA"),
-                      key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in kern) / 4 / 1e3
-        log(f"7B decode step, 16 slots, span {span}: wall {wall:.2f} ms/step, "
-            f"host issue {issue / 8 * 1e3:.2f} ms/step, device busy "
-            f"{busy:.2f} ms/step ({100 * (1 - busy / wall):.0f}% idle) over "
-            f"{sum(e.count for e in kern) / 4:.0f} kernels/step; top 8:")
-        for e in kern[:8]:
-            log(f"  {e.self_device_time_total / 4 / 1e3:8.3f} ms/step "
-                f"{e.count / 4:6.1f}/step {e.key[:70]}")
+        kern = decode_split(llm, tok, pos, span,
+                            f"7B decode step, 16 slots, span {span}", gen)
         tiled = sum(e.self_device_time_total for e in kern
                     if "tiled_" in e.key) / 4 / layers / 1e3
         if span == SEQ7B:
@@ -1140,6 +1244,7 @@ def main() -> int:
     ap.add_argument("--write", choices=sorted(CHECKPOINTS),
                     help=argparse.SUPPRESS)   # a checkpoint writer's child
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -1155,10 +1260,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     check_toolchain()
-    with phase("build native codecs"):
-        build_native_codecs()
+    with phase("build the GGUF quantizer core"):
+        build.build("gguf_kquant")     # before the writers that use it
     writers = Writers(args.seed, ("q5km",) if args.profile
-                      else ("q4km", "q5km", "q4km_7b"))
+                      else tuple(CHECKPOINTS))
     try:
         with phase("build kernels"):
             build_kernels()
@@ -1168,12 +1273,63 @@ def main() -> int:
         kernels = smoke(args.seed, writers)
     finally:
         writers.stop()
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi)          # again, beside the numbers at the end of the output
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def block32_paths(seed: int, writers: Writers, gen: torch.Generator,
+                  rep: Report) -> dict:
+    """The 32-element-block formats: K10/K11 against their plain versions,
+    TinyLlama Q8_0 and Q4_0 served at full width and depth, and the
+    2-layer card-vs-CPU checks of all five formats. Returns the launches
+    of K10 (Q8_0 run) and K11 (Q4_0 run)."""
+    log("== Q8_0 and Q4_0/Q4_1/Q5_0/Q5_1, bf16 activations (K10, K11) ==")
+    tags = {"q8_0": "q8_0", "q4_0": "q4_0", "q4_1": "q4_1_2l",
+            "q5_0": "q5_0_2l", "q5_1": "q5_1_2l"}
+    with phase("load Q8_0, Q4_0 and the 2-layer Q4_1/Q5_0/Q5_1"):
+        paths = {fmt: writers.wait(tag) for fmt, tag in tags.items()}
+        llms = {fmt: LLM(path, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                         device=DEVICE) for fmt, path in paths.items()}
+    with phase("K10/K11 vs plain"):
+        compare_block32(llms["q8_0"].params["layers"][0],
+                        llms["q8_0"].params["output"],
+                        {fmt: llms[fmt].params["layers"][0]
+                         for fmt in ("q4_0", "q4_1", "q5_0", "q5_1")},
+                        gen, rep)
+        compare_compat(seed, gen, rep)
+    launches = {}
+    with phase("serve Q8_0"):
+        launches["mmq_q8_0"] = serve(llms["q8_0"], seed, Q8_0_KERNELS,
+                                     forbidden=KQUANT_KERNELS)["mmq_q8_0"]
+    with phase("serve Q4_0"):
+        launches["mmq_legacy"] = serve(llms["q4_0"], seed, Q4_0_KERNELS,
+                                       forbidden=KQUANT_KERNELS)["mmq_legacy"]
+    with phase("Q8_0 and Q4_0 decode step"):
+        gen_step = torch.Generator(device=DEVICE)
+        gen_step.manual_seed(seed)
+        tok = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, CFG.vocab_size, MAX_BATCH), device=DEVICE)
+        pos = torch.full((MAX_BATCH,), 128, dtype=torch.int32, device=DEVICE)
+        for fmt in ("q8_0", "q4_0"):
+            decode_split(llms[fmt], tok, pos, 256,
+                         f"TinyLlama {fmt} decode step, 16 slots, span 256",
+                         gen_step)
+    with phase("reference checks of the five formats (2 layers)"):
+        for fmt, llm in llms.items():
+            log(f"-- {fmt}")
+            cpu, _ = reference_check(paths[fmt], llm, seed,
+                                     ((2, MMOpts(), TOL_LOGITS),))
+            if fmt in ("q8_0", "q5_1"):
+                for t in ROUTE_TS:
+                    projection_check(cpu, llm, seed, t)
+    del llms
+    torch.cuda.empty_cache()
+    return launches
 
 
 def smoke(seed: int, writers: Writers) -> list:
@@ -1241,6 +1397,8 @@ def smoke(seed: int, writers: Writers) -> list:
         compare_attention(gen, rep, h=CFG7B.n_heads, kvh=CFG7B.n_kv_heads,
                           hd=CFG7B.head_dim, s=SEQ7B, spans=ATTN_SPANS_7B,
                           tag="kvh32 hd128 ")
+    launches.update(block32_paths(seed, writers, gen, rep))
+
     with phase("write or reuse the 7B checkpoint (wait)"):
         path7 = writers.wait("q4km_7b")
     with phase("load Llama-2-7B"):

@@ -23,8 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gguf_tpu.gguf import GGUFReader
-
+from ..gguf import GGUFReader
 from ..models.llama import MMOpts, forward, fuse_llama_params, init_kv_cache
 from ..models.loader import load_llama
 from .sampler import SamplerConfig, sample

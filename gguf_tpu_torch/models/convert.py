@@ -2,10 +2,12 @@
 
 The caller hands over the reference params with every `QuantTensor` given
 as `(fmt, gguf_bytes, (M, K))` — the bytes from
-`gguf_tpu.quant.layouts.from_soa(t)` — and every float array as numpy, so
-this module needs no jax. The reference loader zero-pads M and K for TPU
-tiles (vocab rows, FFN width); the padding is stripped back to the
-config's true shapes.
+`gguf_tpu.quant.layouts.from_soa(t)`, which also undoes the TPU's Q8_0
+plane order — and every float array as numpy, so this module needs no
+jax. The reference loader zero-pads M and K for TPU tiles (vocab rows,
+FFN width); the padding is stripped back to the config's true shapes,
+whole blocks at a time (256 elements for the K-quants, 32 for Q8_0 and
+the legacy formats).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..quant.layouts import QK_K, BLOCK_BYTES, QuantWeight
+from ..quant.layouts import BLOCK_BYTES, BLOCK_ELEMS, QuantWeight
 from .config import LlamaConfig
 
 
@@ -33,9 +35,10 @@ def _convert(name: str, value, shapes: dict, device):
         return torch.from_numpy(np.array(value)).to(device)
     fmt, raw, (m_pad, k_pad) = value
     m, k = shapes[name]
-    bpb = BLOCK_BYTES[fmt]
-    blocks = np.asarray(raw, np.uint8).reshape(m_pad, k_pad // QK_K, bpb)
-    return QuantWeight.from_blocks(fmt, blocks[:m, :k // QK_K], (m, k), device)
+    per = BLOCK_ELEMS[fmt]
+    blocks = np.asarray(raw, np.uint8).reshape(m_pad, k_pad // per,
+                                               BLOCK_BYTES[fmt])
+    return QuantWeight.from_blocks(fmt, blocks[:m, :k // per], (m, k), device)
 
 
 def params_from_jax(np_params: dict, cfg: LlamaConfig, device) -> dict:

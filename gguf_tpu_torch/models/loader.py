@@ -2,10 +2,11 @@
 writer (llama architecture).
 
 Counterpart of `gguf_tpu/models/loader.py`: `load_llama` (llama branch)
-and `write_random_llama_gguf` (arch "llama"). The reference's
-`_pad_vocab_weights` and `pad_ffn_for_tp` pad M and K for TPU tiles; the
-port's kernels take any M and any K that is a multiple of 256, so it loads
-weights unpadded.
+and `write_random_llama_gguf` (arch "llama"), on the port's own GGUF
+reader and writer. The reference's `_pad_vocab_weights` and
+`pad_ffn_for_tp` pad M and K for TPU tiles; the port's kernels take any M
+and any K that is a multiple of the format's block (`QuantWeight`), so it
+loads weights unpadded.
 
 Params layout (same keys as the reference): {"token_embd", "output",
 "output_norm", "layers": [{"attn_norm", "ffn_norm", "wq", "wk", "wv",
@@ -20,9 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from gguf_tpu.gguf import GGML_TO_FMT, GGMLType, GGUFReader
-from gguf_tpu.gguf.writer import quantize_tensor, write_gguf
-
+from ..gguf import (GGML_TO_FMT, GGMLType, GGUFReader, quantize_tensor,
+                    write_gguf)
 from ..quant.layouts import QuantWeight
 from .config import LlamaConfig
 
@@ -90,9 +90,10 @@ def write_random_llama_gguf(path: str, cfg: LlamaConfig,
 
     Byte-identical to `gguf_tpu.models.write_random_llama_gguf(path, cfg,
     fmt, seed, extra_metadata)` with arch "llama": the same generator
-    draws in the same order. Projections are quantized to `fmt`; the
-    output head is Q6_K for K-quant `fmt` (llama.cpp's Q4_K_M recipe);
-    norms are F32 ones."""
+    draws in the same order. Projections and the embedding are quantized
+    to `fmt`; the output head is Q6_K for K-quant `fmt` (llama.cpp's
+    Q4_K_M recipe) and `fmt` otherwise (Q8_0, Q4_0, ...); norms are F32
+    ones."""
     rng = np.random.default_rng(seed)
     d, f, v = cfg.dim, cfg.ffn_dim, cfg.vocab_size
     q_d = cfg.n_heads * cfg.head_dim

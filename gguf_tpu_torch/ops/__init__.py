@@ -4,9 +4,11 @@ PyTorch version, and the MMQ dispatch table."""
 from .activation import fake_quantize_q8_1, quantize_q8_1_codes
 from .attention import (decode_attention, decode_attention_tiled,
                         decode_attention_update, kv_cache_insert)
+from .mmq_legacy import mmq_legacy, mmq_q4_0, mmq_q4_1, mmq_q5_0, mmq_q5_1
 from .mmq_q4_k import mmq_i8, mmq_q4_k
 from .mmq_q5_k import mmq_q5_k
 from .mmq_q6_k import mmq_q6_k
+from .mmq_q8_0 import mmq_q8_0
 
 
 class _MMQ(dict):
@@ -18,9 +20,11 @@ class _MMQ(dict):
             "ROADMAP.md, queue 2 (TPU kernels still to port)")
 
 
-MMQ = _MMQ(q4_k=mmq_q4_k, q5_k=mmq_q5_k, q6_k=mmq_q6_k)
+MMQ = _MMQ(q4_k=mmq_q4_k, q5_k=mmq_q5_k, q6_k=mmq_q6_k, q8_0=mmq_q8_0,
+           q4_0=mmq_q4_0, q4_1=mmq_q4_1, q5_0=mmq_q5_0, q5_1=mmq_q5_1)
 
-__all__ = ["MMQ", "mmq_q4_k", "mmq_q5_k", "mmq_q6_k", "mmq_i8",
-           "quantize_q8_1_codes", "fake_quantize_q8_1", "kv_cache_insert",
-           "decode_attention", "decode_attention_tiled",
+__all__ = ["MMQ", "mmq_q4_k", "mmq_q5_k", "mmq_q6_k", "mmq_q8_0",
+           "mmq_legacy", "mmq_q4_0", "mmq_q4_1", "mmq_q5_0", "mmq_q5_1",
+           "mmq_i8", "quantize_q8_1_codes", "fake_quantize_q8_1",
+           "kv_cache_insert", "decode_attention", "decode_attention_tiled",
            "decode_attention_update"]

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from ..quant.layouts import BLOCK_BYTES, QK_K, QuantWeight
+from ..quant.layouts import QuantWeight, kquant_parts
 from . import build
 from .activation import GLU_CODES, codes_2d, fake_quant_2d, glu_plain
 
@@ -65,41 +65,12 @@ def check_precision(precision: str) -> None:
         raise ValueError(f"precision must be 'fast' or 'high', got {precision!r}")
 
 
-def kquant_parts_plain(w: QuantWeight):
-    """Q4_K or Q5_K blocks -> (d*sc, dmin*mn) per 32-block (M, K/256, 8)
-    and the codes (M, K/256, 8, 32), all float32, in torch ops on the
-    weight's device."""
-    m, k = w.shape
-    sb = k // QK_K
-    blk = w.fields["blocks"].view(m, sb, BLOCK_BYTES[w.fmt])
-    d = blk[:, :, 0:2].contiguous().view(torch.float16).float()
-    dmin = blk[:, :, 2:4].contiguous().view(torch.float16).float()
-    s = blk[:, :, 4:16].int()
-    a, bb, c = s[..., 0:4], s[..., 4:8], s[..., 8:12]
-    sc = torch.cat([a & 63, (c & 15) | ((a >> 6) << 4)], dim=-1).float()
-    mn = torch.cat([bb & 63, (c >> 4) | ((bb >> 6) << 4)], dim=-1).float()
-    qs = 48 if w.fmt == "q5_k" else 16
-    qv = blk[:, :, qs:].int().view(m, sb, 4, 1, 32)
-    q = torch.cat([qv & 15, qv >> 4], dim=3).view(m, sb, 8, 32)
-    if w.fmt == "q5_k":     # bit b of qh byte l: fifth bit of block b, elem l
-        qh = blk[:, :, 16:48].int().view(m, sb, 1, 32)
-        bit = torch.arange(8, dtype=torch.int32, device=qh.device).view(1, 1, 8, 1)
-        q = q | (((qh >> bit) & 1) << 4)
-    return d * sc, dmin * mn, q.float()
-
-
-def dequantize_kquant_plain(w: QuantWeight) -> torch.Tensor:
-    """(M, K) float32 from Q4_K or Q5_K bytes; same float op order as
-    `gguf_tpu.quant.dequantize_q4_k` / `dequantize_q5_k`
-    (x = (d*sc)*q - dmin*mn), so bit-equal to them."""
-    scale, minv, q = kquant_parts_plain(w)
-    return (scale[..., None] * q - minv[..., None]).view(w.shape)
-
-
 def dequantize_q4_k_plain(w: QuantWeight) -> torch.Tensor:
+    """(M, K) float32 in torch ops on the weight's device, bit-equal to
+    the JAX package's dequantize (x = (d*sc)*q - dmin*mn)."""
     if w.fmt != "q4_k":
         raise ValueError(f"expected a q4_k weight, got {w.fmt}")
-    return dequantize_kquant_plain(w)
+    return w.dequantize()
 
 
 def matmul_plain(x: torch.Tensor, wf: torch.Tensor,
@@ -204,7 +175,7 @@ def mmq_i8_plain(w: QuantWeight, q: torch.Tensor, d: torch.Tensor,
     n = _check_i8(w, q, d, s)
     m, k = w.shape
     nb = k // 32
-    scale, minv, codes = kquant_parts_plain(w)
+    scale, minv, codes = kquant_parts(w)
     p = torch.bmm(q.float().view(n, nb, 32).transpose(0, 1),
                   codes.view(m, nb, 32).permute(1, 2, 0))       # (nb, n, M)
     c = ((p * d.T[:, :, None]) * scale.view(m, nb).T[:, None, :]).sum(dim=0)

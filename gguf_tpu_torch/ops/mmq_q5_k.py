@@ -21,19 +21,19 @@ import torch
 
 from ..quant.layouts import QuantWeight
 from . import build
-from .mmq_q4_k import (check_operands, check_precision,
-                       dequantize_kquant_plain, matmul_plain, route_act_quant)
+from .mmq_q4_k import (check_operands, check_precision, matmul_plain,
+                       route_act_quant)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"mmq_q5_k_launch": [_VP] * 3 + [_I] * 5 + [_VP]}
 
 
 def dequantize_q5_k_plain(w: QuantWeight) -> torch.Tensor:
-    """(M, K) float32 in torch ops on the weight's device; same op order
-    as `gguf_tpu.quant.dequantize_q5_k`, so bit-equal to it."""
+    """(M, K) float32 in torch ops on the weight's device, bit-equal to
+    the JAX package's dequantize."""
     if w.fmt != "q5_k":
         raise ValueError(f"expected a q5_k weight, got {w.fmt}")
-    return dequantize_kquant_plain(w)
+    return w.dequantize()
 
 
 def mmq_q5_k_plain(w: QuantWeight, b: torch.Tensor, *,

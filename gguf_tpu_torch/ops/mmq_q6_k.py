@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ..quant.layouts import QK_K, QuantWeight
+from ..quant.layouts import QuantWeight
 from . import build
 from .activation import fake_quant_2d
 from .mmq_q4_k import check_operands, check_precision, matmul_plain
@@ -29,21 +29,11 @@ _SIG = {"mmq_q6_k_launch": [_VP] * 6 + [_I] * 6 + [_VP]}
 
 
 def dequantize_q6_k_plain(w: QuantWeight) -> torch.Tensor:
-    """(M, K) float32 in torch ops on the weight's device; same op order as
-    `gguf_tpu.quant.dequantize_q6_k` ((d*scale) * (q-32)), so bit-equal."""
-    m, k = w.shape
-    sb = k // QK_K
-    f = w.fields
-    ql = f["ql"].view(m, sb, 2, 2, 32).int()        # (half, slot, byte)
-    qh = f["qh"].view(m, sb, 2, 1, 32).int()
-    low4 = torch.cat([ql & 15, ql >> 4], dim=3).view(m, sb, QK_K)
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32,
-                          device=ql.device).view(1, 1, 1, 4, 1)
-    hi2 = ((qh >> shifts) & 3).view(m, sb, QK_K)
-    q = ((low4 | (hi2 << 4)) - 32).float().view(m, sb, 16, 16)
-    scales = f["sc"].view(torch.int8).view(m, sb, 16).float()
-    d = f["d"].view(m, sb, 2).view(torch.float16).float()
-    return ((d * scales)[..., None] * q).view(m, k)
+    """(M, K) float32 in torch ops on the weight's device, bit-equal to
+    the JAX package's dequantize ((d*scale) * (q-32))."""
+    if w.fmt != "q6_k":
+        raise ValueError(f"expected a q6_k weight, got {w.fmt}")
+    return w.dequantize()
 
 
 def mmq_q6_k_plain(w: QuantWeight, b: torch.Tensor, *,

@@ -1,5 +1,18 @@
-"""Quantized weight containers of the port (GGUF block bytes on the device)."""
+"""Quantized weights of the port: GGUF block bytes on the device
+(`QuantWeight`, dequantized in torch) and the quantizers the checkpoint
+writer uses (numpy for the 32-element-block formats, the port's own C
+core for Q4_K/Q5_K/Q6_K)."""
 
 from .layouts import QuantWeight, concat_m
+from .legacy import quantize_q4_0, quantize_q4_1, quantize_q5_0, quantize_q5_1
+from .native import quantize_q4_k, quantize_q5_k, quantize_q6_k
+from .q8_0 import quantize_q8_0
 
-__all__ = ["QuantWeight", "concat_m"]
+# format name -> float array -> flat GGUF block bytes
+QUANTIZERS = {"q4_k": quantize_q4_k, "q5_k": quantize_q5_k,
+              "q6_k": quantize_q6_k, "q8_0": quantize_q8_0,
+              "q4_0": quantize_q4_0, "q4_1": quantize_q4_1,
+              "q5_0": quantize_q5_0, "q5_1": quantize_q5_1}
+
+__all__ = ["QuantWeight", "concat_m", "QUANTIZERS", *sorted(
+    f"quantize_{f}" for f in QUANTIZERS)]

@@ -1,7 +1,8 @@
 """The port's continuous-batching engine held against the JAX package's
-`LLM.generate` (greedy tokens, with bf16 and with Q8_1 activations), its
-sampler, and the import boundary: the port runs with jax made
-unimportable."""
+`LLM.generate` (greedy tokens, with bf16 and with Q8_1 activations, on
+Q4_K_M and Q8_0 checkpoints), its sampler, and the import boundary: the
+port runs with jax and the JAX package made unimportable, loads nothing
+from the JAX package's files or its C core, and its sources name neither."""
 
 import os
 import re
@@ -19,7 +20,8 @@ from gguf_tpu.models import forward as jax_forward
 from gguf_tpu.models import init_kv_cache as jax_init_cache
 from gguf_tpu.models import MMOpts as JaxMMOpts
 from gguf_tpu_torch.engine import LLM, SamplerConfig, sample
-from gguf_tpu_torch.models import LlamaConfig, MMOpts, write_random_llama_gguf
+from gguf_tpu_torch.models import (GGMLType, LlamaConfig, MMOpts,
+                                   write_random_llama_gguf)
 
 CFG = LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4,
                   n_kv_heads=2, ffn_dim=512, max_seq_len=256)
@@ -34,6 +36,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def checkpoint(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("torch_engine") / "tiny.gguf")
     write_random_llama_gguf(path, CFG, seed=0)
+    return path
+
+
+@pytest.fixture(scope="module")
+def checkpoint_q8_0(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("torch_engine_q8") / "tiny_q8_0.gguf")
+    write_random_llama_gguf(path, CFG, fmt=GGMLType.Q8_0, seed=4)
     return path
 
 
@@ -90,6 +99,15 @@ def test_greedy_generate_under_act_quant_matches_jax(checkpoint):
     assert compared >= 2 * NEW, compared
 
 
+def test_greedy_generate_q8_0_matches_jax(checkpoint_q8_0):
+    """A Q8_0 checkpoint (every matrix Q8_0, head and embedding included):
+    6 prompts over 4 slots, bf16 activations, the Q8_0 MMQ (K10's plain
+    version) on every projection."""
+    compared = _greedy_parity(checkpoint_q8_0, JaxMMOpts(), MMOpts(),
+                              FORWARD_TOL, PROMPT_LENS, seed=2)
+    assert compared >= 2 * NEW, compared
+
+
 def test_generate_stats_and_admission(checkpoint):
     llm = LLM(checkpoint, max_batch=2, max_seq=256, device="cpu")
     res = llm.generate([[1, 2, 3], [4, 5], [6]], max_new_tokens=3)
@@ -130,49 +148,90 @@ def test_sampler_filters():
 
 
 _NO_JAX = """
-import sys
+import os, sys
 sys.modules["jax"] = None
+sys.modules["gguf_tpu"] = None
 sys.path.insert(0, {repo!r})
 import gguf_tpu_torch, gguf_tpu_torch.ops, gguf_tpu_torch.quant
+import gguf_tpu_torch.compat
 from gguf_tpu_torch.engine import LLM
 from gguf_tpu_torch.eval import perplexity_of_gguf
-from gguf_tpu_torch.models import LlamaConfig, MMOpts, write_random_llama_gguf
+from gguf_tpu_torch.models import (GGMLType, LlamaConfig, MMOpts,
+                                   write_random_llama_gguf)
 cfg = LlamaConfig(vocab_size=64, dim=256, n_layers=1, n_heads=4,
                   n_kv_heads=2, ffn_dim=256, max_seq_len=64)
-write_random_llama_gguf({path!r}, cfg, seed=2)
-res = LLM({path!r}, max_batch=2, device="cpu").generate([[1, 2, 3]],
-                                                         max_new_tokens=2)
-assert len(res[0].token_ids) == 2, res
-res = LLM({path!r}, max_batch=2, device="cpu",
-          opts=MMOpts(act_quant=True, precision="high")).generate(
-              [[1, 2, 3]], max_new_tokens=2)
-assert len(res[0].token_ids) == 2, res
-assert perplexity_of_gguf({path!r}, list(range(40)), device="cpu",
+for fmt in ("Q4_K", "Q8_0", "Q4_0"):
+    path = os.path.join({tmp!r}, fmt + ".gguf")
+    write_random_llama_gguf(path, cfg, fmt=GGMLType[fmt], seed=2)
+    for opts in (MMOpts(), MMOpts(act_quant=True, precision="high")):
+        res = LLM(path, max_batch=2, device="cpu", opts=opts).generate(
+            [[1, 2, 3]], max_new_tokens=2)
+        assert len(res[0].token_ids) == 2, (fmt, opts, res)
+assert perplexity_of_gguf(path, list(range(40)), device="cpu",
                           act_quant=True, window=16) > 1.0
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["gguf_tpu"] is None
+# nothing loaded from the JAX package's files or its C core (csrc/)
+banned = [os.path.join({repo!r}, d) + os.sep for d in ("gguf_tpu", "csrc")]
+files = [getattr(m, "__file__", None) or "" for m in list(sys.modules.values())
+         if m is not None]
+with open("/proc/self/maps") as f:
+    files += [line.split()[-1] for line in f if "/" in line]
+hit = [p for p in files if any(os.path.abspath(p).startswith(b) for b in banned)]
+assert not hit, hit
 print("ok")
 """
 
 
 def test_port_runs_with_jax_unimportable(tmp_path):
-    code = _NO_JAX.format(repo=REPO, path=str(tmp_path / "nojax.gguf"))
+    """The port writes, loads and serves Q4_K, Q8_0 and Q4_0 checkpoints
+    on the CPU, with and without act_quant, and scores perplexity, with
+    `jax` and `gguf_tpu` unimportable; no module or shared library it
+    loads lies under the JAX package or the root `csrc/`."""
+    code = _NO_JAX.format(repo=REPO, tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=str(tmp_path), timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
 
 
+# an import of the JAX package (`gguf_tpu`, not `gguf_tpu_torch`), a
+# module or path named by the string "gguf_tpu" ("gguf_tpu" as a path
+# component, "gguf_tpu.x" for import_module), or a file loaded by path
+_JAX_PACKAGE = re.compile(
+    r"^\s*(import|from)\s+gguf_tpu\b|[\"']gguf_tpu[\"'.]"
+    r"|spec_from_file_location", re.M)
+
+
 def test_port_sources_never_import_jax():
-    """No import statement of the port names jax; chip_smoke.py imports
-    nothing of the JAX package either."""
+    """No import statement of the port or chip_smoke.py names jax or the
+    JAX package, no string of theirs names the JAX package as a module or
+    path, and chip_smoke.py builds nothing with make (the root csrc/ is
+    the JAX package's C core)."""
     jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     pkg = os.path.join(REPO, "gguf_tpu_torch")
-    for root, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as f:
-                    assert not jax_import.search(f.read()), name
+    sources = [os.path.join(root, name) for root, _, files in os.walk(pkg)
+               for name in files if name.endswith(".py")]
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    for path in sources:
+        with open(path) as f:
+            src = f.read()
+        assert not jax_import.search(src), path
+        hit = _JAX_PACKAGE.search(src)
+        assert not hit, (path, hit.group(0))
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        src = f.read()
-    assert not jax_import.search(src)
-    assert not re.search(r"^\s*(import|from)\s+gguf_tpu\b", src, re.M)
+        assert not re.search(r"[\"']make[\"']", f.read())
+
+
+def test_boundary_scan_catches_the_forms_it_names():
+    """The scan's pattern on lines that break the boundary and on lines
+    that keep it."""
+    for bad in ("import gguf_tpu.gguf", "from gguf_tpu.quant import x",
+                "from gguf_tpu import compat", "import gguf_tpu",
+                'os.path.join(root, "gguf_tpu", "models", "config.py")',
+                "importlib.import_module('gguf_tpu.quant')",
+                "spec = importlib.util.spec_from_file_location(n, p)"):
+        assert _JAX_PACKAGE.search(bad), bad
+    for good in ("import gguf_tpu_torch.ops", "from gguf_tpu_torch import x",
+                 "from . import build", '"gguf_tpu/ops/mmq_q8_0.py:64"',
+                 "`gguf_tpu.quant` is the reference"):
+        assert not _JAX_PACKAGE.search(good), good

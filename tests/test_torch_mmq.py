@@ -140,7 +140,7 @@ def test_operand_checks_and_unported_formats():
     with pytest.raises(ValueError, match="precision"):
         mmq_q5_k(w, torch.zeros(2, K), precision="medium")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MMQ["q8_0"]
+        MMQ["q2_k"]
 
 
 def test_cpu_tensors_never_count_kernel_launches():
