@@ -4,14 +4,15 @@
 
 Builds the port's GGUF quantizer core (gcc) and then, while child
 processes write (or reuse, under the temp dir) the random checkpoints
-below, its eleven hand-written CUDA kernels from gguf_tpu_torch/csrc (one
+below, its fifteen hand-written CUDA kernels from gguf_tpu_torch/csrc (one
 nvcc per source, all at once). Checkpoints, each at full width with
 random weights from a seed: TinyLlama-1.1B (22 layers) as Q4_K_M (Q4_K
 projections and embedding, Q6_K head), Q5_K_M (Q5_K, Q6_K head), Q8_0
-and Q4_0 (every matrix in the format, head and embedding included);
-2-layer TinyLlama-width Q4_1, Q5_0 and Q5_1; and Llama-2-7B as Q4_K_M.
-It then runs the main paths below, each with every kernel's launch
-counter reset just before it and read just after:
+and Q4_0 (every matrix in the format, head and embedding included), and
+in llama.cpp's Q2_K mix (`q2k_mix_type`); 2-layer TinyLlama-width Q4_1,
+Q5_0, Q5_1, Q2_K, Q3_K, IQ4_NL and IQ4_XS (every matrix in the format);
+and Llama-2-7B as Q4_K_M. It then runs the main paths below, each with
+every kernel's launch counter reset just before it and read just after:
 
 Q4_K_M with bf16 activations (kernels K1-K4):
 1. holds K1-K4 against their plain PyTorch versions on the card, at the
@@ -57,6 +58,27 @@ The 32-element-block formats (kernels K10 `mmq_q8_0` and K11
    (logits within 1e-2), and for Q8_0 and Q5_1 every projection of a
    16- and a 64-token act_quant prefill as in 6 (routes K6+K10, K6+K11).
 
+The low-bit formats (kernels K12 `mmq_q2_k`, K13 `mmq_q3_k`, K14
+`mmq_iq4`, with K1-K4 in the Q2_K mix; K15 `rms_norm`):
+a. holds K12 and K13 against their plain versions at every projection of
+   the 2-layer Q2_K / Q3_K files, the head and the mix's unfused wq and
+   wk, n = 1, 16, 64, 65, 512 (both sides of K12's n_pad <= 64 arm),
+   "fast" (1e-3 of max|ref|) and "high" (1e-5), on bf16 activations and
+   fed K6's output, and through `compat.mmq_q2_k` / `compat.mmq_q3_k` at
+   M, N in {1, 4, 16}; K15 against its plain version at n = 1, 16, 64,
+   d = 2048 and 4096, f32 and bf16 input (1e-6);
+b. serves the 24 prompts through the 22-layer Q2_K mix, requiring
+   launches of K12, K13, K1, K2, K3 and K4 and none of the other MMQ
+   kernels, then splits a 16-slot decode step at span 256 (host clock,
+   launches per step and `torch.profiler`) and recomputes every RMSNorm
+   of one such step with K15 beside the model's own (1e-6);
+c. checks 2 layers of the mix and of the Q2_K and Q3_K files against the
+   CPU run (logits within 1e-2), with the act_quant projection check of
+   6 for Q2_K and Q3_K (routes K6+K12, K6+K13);
+d. after the 7B phases, K14 as in a. on the IQ4_NL and IQ4_XS files,
+   the 24 prompts served through the IQ4_XS one (K14 launched), and the
+   checks of c. for both (projection check for IQ4_XS: K6+K14).
+
 Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 (kernels K1-K4 and K9, flash-decoding):
 11. holds K9 against its plain version ("fast" and "high", 1e-3 of
@@ -97,6 +119,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -113,14 +136,17 @@ from gguf_tpu_torch import compat
 from gguf_tpu_torch.engine import LLM, SamplerConfig
 from gguf_tpu_torch.engine import engine as engine_mod
 from gguf_tpu_torch.eval import perplexity_of_gguf, sequence_nll
+from gguf_tpu_torch.gguf import quantize_tensor, write_gguf
 from gguf_tpu_torch.models import (GGMLType, LlamaConfig, MMOpts, forward,
                                    fuse_llama_params, init_kv_cache,
                                    load_llama, write_random_llama_gguf)
+from gguf_tpu_torch.models import llama as llama_mod
 from gguf_tpu_torch.ops import MMQ, build
 from gguf_tpu_torch.ops.activation import (fake_quantize_q8_1,
                                            fake_quantize_q8_1_plain,
                                            quantize_q8_1_codes,
-                                           quantize_q8_1_codes_plain)
+                                           quantize_q8_1_codes_plain,
+                                           rms_norm, rms_norm_plain)
 from gguf_tpu_torch.ops.attention import (_attend_cuda, decode_attention,
                                           decode_attention_plain,
                                           decode_attention_tiled,
@@ -128,13 +154,17 @@ from gguf_tpu_torch.ops.attention import (_attend_cuda, decode_attention,
                                           decode_attention_update,
                                           kv_cache_insert,
                                           kv_cache_insert_plain)
+from gguf_tpu_torch.ops.mmq_iq4 import mmq_iq4, mmq_iq4_plain
 from gguf_tpu_torch.ops.mmq_legacy import mmq_legacy, mmq_legacy_plain
+from gguf_tpu_torch.ops.mmq_q2_k import mmq_q2_k, mmq_q2_k_plain
+from gguf_tpu_torch.ops.mmq_q3_k import mmq_q3_k, mmq_q3_k_plain
 from gguf_tpu_torch.ops.mmq_q4_k import (mmq_i8, mmq_i8_plain, mmq_q4_k,
                                          mmq_q4_k_plain)
 from gguf_tpu_torch.ops.mmq_q5_k import mmq_q5_k, mmq_q5_k_plain
 from gguf_tpu_torch.ops.mmq_q6_k import mmq_q6_k, mmq_q6_k_plain
 from gguf_tpu_torch.ops.mmq_q8_0 import mmq_q8_0, mmq_q8_0_plain
 from gguf_tpu_torch.quant import QUANTIZERS, QuantWeight
+from gguf_tpu_torch.quant.layouts import q2_k_parts
 
 # TinyLlama-1.1B (benchmarks/suite.py): vocab 32000, dim 2048, 22 layers,
 # 32 heads, 4 KV heads (head_dim 64), ffn 5632
@@ -161,6 +191,8 @@ TILED_SPANS = (1024, 2048, 4096)
 MMQ_NS = (1, 16, 512)
 BLOCK32_NS = (1, 16, 64, 65, 512)  # both sides of the reference's n <= 64 arm
 COMPAT_MNS, COMPAT_KS = (1, 4, 16), (32, 64, 96, 128)
+KQUANT_COMPAT_KS = (256, 512)   # Q2_K/Q3_K: K a multiple of the superblock
+NORM_NS, NORM_DS = (1, 16, 64), (2048, 4096)
 ATTN_TS, ATTN_SPANS = (1, 8), (128, 512, 2048)
 ATTN_SPANS_7B = (128, 512)
 Q81_NS, Q81_KS = (1, 16, 64, 512), (2048, 5632)
@@ -192,6 +224,9 @@ TOL_LOGITS_22 = 5e-2
 # `projection_check` holds each projection's route to 1e-5 on its own input
 TOL_LOGITS_ACT_QUANT = 3e-2
 TOL_NATS = 1e-2       # mean NLL, card vs CPU, 2 layers
+# RMSNorm in f32: the sum of squares in another order, and rsqrtf within an
+# ulp or two of torch's rsqrt
+TOL_NORM = 1e-6
 KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "mmq_q4_k": ("gguf_tpu_torch/csrc/mmq_q4_k.cu",
                  "gguf_tpu/ops/mmq_q4_k.py:223"),
@@ -215,6 +250,14 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                  "gguf_tpu/ops/mmq_q8_0.py:64"),
     "mmq_legacy": ("gguf_tpu_torch/csrc/mmq_legacy.cu",
                    "gguf_tpu/ops/mmq_legacy.py:41"),
+    "mmq_q2_k": ("gguf_tpu_torch/csrc/mmq_q2_k.cu",
+                 "gguf_tpu/ops/mmq_q2_k.py:131"),
+    "mmq_q3_k": ("gguf_tpu_torch/csrc/mmq_q3_k.cu",
+                 "gguf_tpu/ops/mmq_q3_k.py:47"),
+    "mmq_iq4": ("gguf_tpu_torch/csrc/mmq_iq4.cu",
+                "gguf_tpu/ops/mmq_iq4.py:39"),
+    "rms_norm": ("gguf_tpu_torch/csrc/activation.cu",
+                 "gguf_tpu/ops/activation.py:128"),
 }
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
 WRAPPERS = {"mmq_q4_k": mmq_q4_k, "mmq_q6_k": mmq_q6_k,
@@ -224,7 +267,13 @@ WRAPPERS = {"mmq_q4_k": mmq_q4_k, "mmq_q6_k": mmq_q6_k,
             "fake_quantize_q8_1": fake_quantize_q8_1,
             "mmq_i8": mmq_i8, "mmq_q5_k": mmq_q5_k,
             "decode_attention_tiled": decode_attention_tiled,
-            "mmq_q8_0": mmq_q8_0, "mmq_legacy": mmq_legacy}
+            "mmq_q8_0": mmq_q8_0, "mmq_legacy": mmq_legacy,
+            "mmq_q2_k": mmq_q2_k, "mmq_q3_k": mmq_q3_k, "mmq_iq4": mmq_iq4,
+            "rms_norm": rms_norm}
+# the MMQ kernels (wrapper, plain version) of the low-bit formats
+LOWBIT = {"mmq_q2_k": (mmq_q2_k, mmq_q2_k_plain),
+          "mmq_q3_k": (mmq_q3_k, mmq_q3_k_plain),
+          "mmq_iq4": (mmq_iq4, mmq_iq4_plain)}
 # the kernels each main path must launch; a kernel's "launches" in the
 # {"kernels": ...} line come from the last path that requires it
 Q4KM_KERNELS = ("mmq_q4_k", "mmq_q6_k", "kv_cache_insert", "decode_attention")
@@ -233,8 +282,13 @@ Q5KM_KERNELS = ("mmq_q6_k", "kv_cache_insert", "decode_attention",
                 "mmq_q5_k")
 Q8_0_KERNELS = ("mmq_q8_0", "kv_cache_insert", "decode_attention")
 Q4_0_KERNELS = ("mmq_legacy", "kv_cache_insert", "decode_attention")
-# the K-quant MMQ kernels, which no projection of a 32-block checkpoint runs
-KQUANT_KERNELS = ("mmq_q4_k", "mmq_q6_k", "mmq_i8", "mmq_q5_k")
+Q2K_MIX_KERNELS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q6_k",
+                   "kv_cache_insert", "decode_attention")
+IQ4_XS_KERNELS = ("mmq_iq4", "kv_cache_insert", "decode_attention")
+# every MMQ kernel: a serving path with bf16 activations must launch none
+# but those of its own formats
+MMQ_KERNELS = ("mmq_q4_k", "mmq_q6_k", "mmq_i8", "mmq_q5_k", "mmq_q8_0",
+               "mmq_legacy", "mmq_q2_k", "mmq_q3_k", "mmq_iq4")
 ROUND_A_KERNELS = Q4KM_KERNELS
 ROUND_B_KERNELS = ("mmq_q4_k", "mmq_q6_k", "kv_cache_insert",
                    "decode_attention_tiled")
@@ -249,7 +303,11 @@ HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
             "mmq_q5_k": "gate_up 11264x2048 n=16 fast",
             "decode_attention_tiled": "b16 h32 hd128 span=4096 fast",
             "mmq_q8_0": "gate_up 11264x2048 n=16 fast",
-            "mmq_legacy": "q4_0 gate_up 11264x2048 n=16 fast"}
+            "mmq_legacy": "q4_0 gate_up 11264x2048 n=16 fast",
+            "mmq_q2_k": "gate_up 11264x2048 n=16 fast",
+            "mmq_q3_k": "gate_up 11264x2048 n=16 fast",
+            "mmq_iq4": "iq4_xs gate_up 11264x2048 n=16 fast",
+            "rms_norm": "n=16 d=2048 bf16"}
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): a kernel's bound
 # is the larger of its bytes over HBM_BPS and its operations over the peak
 # of their type
@@ -413,15 +471,70 @@ def build_kernels() -> None:
                     log(f"  ptxas {name}: {line.strip()}")
 
 
-# tag -> (config, projection format, model name in the file name)
-CHECKPOINTS = {"q4km": (CFG, GGMLType.Q4_K, "tinyllama"),
-               "q5km": (CFG, GGMLType.Q5_K, "tinyllama"),
-               "q8_0": (CFG, GGMLType.Q8_0, "tinyllama"),
-               "q4_0": (CFG, GGMLType.Q4_0, "tinyllama"),
-               "q4_1_2l": (CFG2, GGMLType.Q4_1, "tinyllama"),
-               "q5_0_2l": (CFG2, GGMLType.Q5_0, "tinyllama"),
-               "q5_1_2l": (CFG2, GGMLType.Q5_1, "tinyllama"),
-               "q4km_7b": (CFG7B, GGMLType.Q4_K, "llama2_7b")}
+def q2k_mix_type(name: str, cfg: LlamaConfig) -> GGMLType:
+    """The tensor type of a matrix in llama.cpp's Q2_K files
+    (LLAMA_FTYPE_MOSTLY_Q2_K in `llama_tensor_get_type`, llama.cpp's
+    src/llama-quant.cpp): attn_v Q4_K when n_heads / n_kv_heads >= 4, else
+    Q3_K; attn_output and ffn_down Q3_K; output.weight Q6_K; every other
+    matrix, token_embd included, Q2_K."""
+    if name == "output.weight":
+        return GGMLType.Q6_K
+    if name.endswith("attn_v.weight"):
+        return (GGMLType.Q4_K if cfg.n_heads // cfg.n_kv_heads >= 4
+                else GGMLType.Q3_K)
+    if name.endswith(("attn_output.weight", "ffn_down.weight")):
+        return GGMLType.Q3_K
+    return GGMLType.Q2_K
+
+
+def write_q2k_mix(path: str, cfg: LlamaConfig, seed: int = 0) -> None:
+    """A random llama checkpoint in the Q2_K mix (`q2k_mix_type`): the
+    draws of `write_random_llama_gguf` in its order (N(0, 1) * 0.5 /
+    sqrt(dim) per matrix, F32 norms of ones), each matrix quantized to its
+    type with the port's `quantize_tensor`, written by `write_gguf`."""
+    rng = np.random.default_rng(seed)
+    d, f, v = cfg.dim, cfg.ffn_dim, cfg.vocab_size
+    q_d, kv_d = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = {"token_embd.weight": (v, d), "output.weight": (v, d)}
+    for i in range(cfg.n_layers):
+        for name, shape in (("attn_q", (q_d, d)), ("attn_k", (kv_d, d)),
+                            ("attn_v", (kv_d, d)), ("attn_output", (d, q_d)),
+                            ("ffn_gate", (f, d)), ("ffn_up", (f, d)),
+                            ("ffn_down", (d, f))):
+            shapes[f"blk.{i}.{name}.weight"] = shape
+    tensors = {}
+    for name, shape in shapes.items():
+        t = q2k_mix_type(name, cfg)
+        w = (rng.standard_normal(shape) * (0.5 / np.sqrt(d))).astype(np.float32)
+        tensors[name] = (t, shape, quantize_tensor(w, t))
+    ones = (GGMLType.F32, (d,), np.ones(d, np.float32))
+    tensors["output_norm.weight"] = ones
+    for i in range(cfg.n_layers):
+        tensors[f"blk.{i}.attn_norm.weight"] = ones
+        tensors[f"blk.{i}.ffn_norm.weight"] = ones
+    write_gguf(path, cfg.to_gguf_metadata("llama"), tensors)
+
+
+def _uniform(fmt: GGMLType):
+    """The writer of a checkpoint whose matrices are all `fmt` (the head
+    Q6_K for the K-quant formats Q4_K to Q6_K)."""
+    return functools.partial(write_random_llama_gguf, fmt=fmt)
+
+
+# tag -> (config, writer(path, cfg, seed=), model name in the file name)
+CHECKPOINTS = {"q4km": (CFG, _uniform(GGMLType.Q4_K), "tinyllama"),
+               "q5km": (CFG, _uniform(GGMLType.Q5_K), "tinyllama"),
+               "q8_0": (CFG, _uniform(GGMLType.Q8_0), "tinyllama"),
+               "q4_0": (CFG, _uniform(GGMLType.Q4_0), "tinyllama"),
+               "q4_1_2l": (CFG2, _uniform(GGMLType.Q4_1), "tinyllama"),
+               "q5_0_2l": (CFG2, _uniform(GGMLType.Q5_0), "tinyllama"),
+               "q5_1_2l": (CFG2, _uniform(GGMLType.Q5_1), "tinyllama"),
+               "q2k_mix": (CFG, write_q2k_mix, "tinyllama"),
+               "q2_k_2l": (CFG2, _uniform(GGMLType.Q2_K), "tinyllama"),
+               "q3_k_2l": (CFG2, _uniform(GGMLType.Q3_K), "tinyllama"),
+               "iq4_nl_2l": (CFG2, _uniform(GGMLType.IQ4_NL), "tinyllama"),
+               "iq4_xs_2l": (CFG2, _uniform(GGMLType.IQ4_XS), "tinyllama"),
+               "q4km_7b": (CFG7B, _uniform(GGMLType.Q4_K), "llama2_7b")}
 
 
 def checkpoint_path(seed: int, tag: str) -> str:
@@ -432,11 +545,11 @@ def checkpoint_path(seed: int, tag: str) -> str:
 
 def write_checkpoint(seed: int, tag: str) -> None:
     """Write one random checkpoint (the child process's whole work)."""
-    cfg, fmt, _ = CHECKPOINTS[tag]
+    cfg, writer, _ = CHECKPOINTS[tag]
     path = checkpoint_path(seed, tag)
     tmp = path + f".{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    write_random_llama_gguf(tmp, cfg, fmt=fmt, seed=seed)
+    writer(tmp, cfg, seed=seed)
     os.replace(tmp, path)
     log(f"wrote {path} in {time.perf_counter() - t0:.1f} s")
 
@@ -836,25 +949,108 @@ def compare_block32(layer8: dict, head8, legacy: dict,
                     TOL_HIGH)
 
 
-def compare_compat(seed: int, gen: torch.Generator, rep: Report) -> None:
-    """K10 through the reference's calling convention,
-    `compat.mmq_q8_0(A, B, M, N, K)` (act_quant and "high" by default),
-    over the reference's sweep: M, N in COMPAT_MNS, K in COMPAT_KS (K = 32
-    and 96 end on a half step of the kernel's K loop)."""
+def compare_compat(seed: int, gen: torch.Generator, rep: Report,
+                   fmt: str = "q8_0", ks: tuple = COMPAT_KS) -> None:
+    """K10 (K12, K13) through the reference's calling convention,
+    `compat.mmq_q8_0(A, B, M, N, K)` (`mmq_q2_k`, `mmq_q3_k`; act_quant and
+    "high" by default), over the reference's sweep: M, N in COMPAT_MNS, K
+    in `ks` (for Q8_0, K = 32 and 96 end on a half step of the kernel's K
+    loop)."""
     rng = np.random.default_rng(seed)
+    kernel = "mmq_" + fmt
+    plain = {"q8_0": mmq_q8_0_plain, "q2_k": mmq_q2_k_plain,
+             "q3_k": mmq_q3_k_plain}[fmt]
     for m in COMPAT_MNS:
-        for k in COMPAT_KS:
-            a = QUANTIZERS["q8_0"](rng.standard_normal((m, k)))
-            w = QuantWeight.from_blocks("q8_0", a, (m, k), DEVICE)
+        for k in ks:
+            a = QUANTIZERS[fmt](rng.standard_normal((m, k)))
+            w = QuantWeight.from_blocks(fmt, a, (m, k), DEVICE)
             for n in COMPAT_MNS:
                 b = torch.randn((n, k), generator=gen, device=DEVICE)
                 for act_quant in (True, False):
-                    got = compat.mmq_q8_0(a, b, m, n, k, device=DEVICE,
-                                          act_quant=act_quant)
+                    got = getattr(compat, kernel)(a, b, m, n, k, device=DEVICE,
+                                                  act_quant=act_quant)
                     x = fake_quantize_q8_1_plain(b) if act_quant else b
-                    err, rel = rel_err(got, mmq_q8_0_plain(w, x))
-                    rep.add("mmq_q8_0", f"compat M={m} N={n} K={k} "
+                    err, rel = rel_err(got, plain(w, x))
+                    if fmt != "q8_0":
+                        # held to the scale of the f32 sums' own rounding
+                        rel = err / _terms_max(w, x)
+                    rep.add(kernel, f"compat M={m} N={n} K={k} "
                             f"act_quant={act_quant}", err, rel, TOL_HIGH)
+
+
+def _terms_max(w: QuantWeight, x: torch.Tensor) -> float:
+    """The largest sum of |terms| over the outputs of x . W^T, Q2_K's
+    split arm counted as its main and its min term: the scale of an f32
+    sum's own rounding error. At M = N = 1 one output may cancel to a
+    small part of its terms (Q2_K's min term, a second positive sum, makes
+    that common), where 1e-5 of max|ref| would hold the kernel to less
+    than f32 can carry."""
+    xa = x.float().abs()
+    (m, k), n = w.shape, x.shape[0]
+    if w.fmt != "q2_k":
+        return float((xa @ w.dequantize().abs().T).max())
+    scale16, min16, q = q2_k_parts(w)
+    t = (xa @ (scale16[..., None] * q).view(m, k).T
+         + xa.view(n, k // 16, 16).sum(-1) @ min16.view(m, k // 16).T)
+    return float(t.max())
+
+
+def compare_lowbit(cases: list, gen: torch.Generator, rep: Report) -> None:
+    """K12, K13 and K14 against their plain versions, `cases` listing
+    (kernel, label, weight): bf16 activations at BLOCK32_NS (both sides of
+    K12's n_pad <= 64 arm), "fast" (TOL_MMQ) and "high" (TOL_HIGH), timed;
+    and K6's f32 output, as the act_quant path feeds them, at n = 16 and
+    512 in both precisions."""
+    for kernel, label, w in cases:
+        fn, plain = LOWBIT[kernel]
+        shape = f"{label}{w.shape[0]}x{w.shape[1]}"
+        for n in BLOCK32_NS:
+            x = torch.randn((n, w.shape[1]), generator=gen,
+                            device=DEVICE).bfloat16()
+            for prec in ("fast", "high"):
+                got = fn(w, x, precision=prec)
+                err, rel = rel_err(got, plain(w, x, precision=prec))
+                rep.add(kernel, f"{shape} n={n} {prec}", err, rel,
+                        TOL_MMQ if prec == "fast" else TOL_HIGH,
+                        lambda: fn(w, x, precision=prec),
+                        lambda: plain(w, x, precision=prec),
+                        work=_mmq_work(w, x, got,
+                                       "bf16" if prec == "fast" else "f32"),
+                        library=lambda: matmul_library(w, x))
+        for n in (16, 512):
+            x = fake_quantize_q8_1(torch.randn((n, w.shape[1]), generator=gen,
+                                               device=DEVICE))
+            for prec in ("fast", "high"):
+                err, rel = rel_err(fn(w, x, precision=prec),
+                                   plain(w, x, precision=prec))
+                rep.add(kernel, f"{shape} n={n} {prec} q8_1 f32", err, rel,
+                        TOL_MMQ if prec == "fast" else TOL_HIGH)
+
+
+def compare_rms_norm(gen: torch.Generator, rep: Report) -> None:
+    """K15 against its plain version (torch's eager form) within TOL_NORM:
+    f32 and bf16 (n, d) input, a (d,) weight; timed beside F.rms_norm on
+    the f32 input."""
+    eps = CFG.norm_eps
+    for d in NORM_DS:
+        w = 1.0 + 0.5 * torch.randn(d, generator=gen, device=DEVICE)
+        for n in NORM_NS:
+            x32 = torch.randn((n, d), generator=gen, device=DEVICE) * 3
+            for x, dt in ((x32, "f32"), (x32.bfloat16(), "bf16")):
+                got = rms_norm(x, w, eps)
+                err, rel = rel_err(got, rms_norm_plain(x, w, eps))
+                xf = x.float()
+                rep.add("rms_norm", f"n={n} d={d} {dt}", err, rel, TOL_NORM,
+                        lambda: rms_norm(x, w, eps),
+                        lambda: rms_norm_plain(x, w, eps),
+                        work=(nbytes(x, w, got), 4.0 * n * d, "f32"),
+                        library=lambda: (lambda: F.rms_norm(xf, (d,), w, eps)))
+
+
+def other_mmq(required: tuple) -> tuple:
+    """The MMQ kernels a serving path that requires `required` must not
+    launch."""
+    return tuple(k for k in MMQ_KERNELS if k not in required)
 
 
 def serve(llm: LLM, seed: int, required: tuple,
@@ -974,11 +1170,15 @@ def recorded_mmq(calls: list):
 
 
 def _expected_route(fmt: str, n: int) -> set:
-    """The kernels the JAX package's act_quant routing runs, "high"."""
-    if fmt in ("q6_k", "q8_0"):
+    """The kernels the JAX package's act_quant routing runs, "high": the
+    integer route (K5 + K7) only for Q4_K and Q5_K at n <= 16, K6 then
+    the format's float kernel otherwise."""
+    if fmt in ("q2_k", "q3_k", "q6_k", "q8_0"):
         return {"fake_quantize_q8_1", "mmq_" + fmt}
     if fmt in ("q4_0", "q4_1", "q5_0", "q5_1"):
         return {"fake_quantize_q8_1", "mmq_legacy"}
+    if fmt in ("iq4_nl", "iq4_xs"):
+        return {"fake_quantize_q8_1", "mmq_iq4"}
     if n <= 16:
         return {"quantize_q8_1_codes", "mmq_i8"}
     return {"fake_quantize_q8_1", "mmq_" + fmt}
@@ -1121,17 +1321,21 @@ def hbm_read_gbs() -> float:
 def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
                  label: str, gen: torch.Generator) -> list:
     """One 16-slot decode step's split at `pos` and `span`: the host clock
-    over 8 steps ending in a sync, then `torch.profiler` over 4 steps
-    (device busy time, idle share, the top kernels). Returns the
-    profiler's CUDA events."""
+    over 8 steps ending in a sync (and the kernel wrappers' launches per
+    step), then `torch.profiler` over 4 steps (device busy time, idle
+    share, the top kernels). Returns the profiler's CUDA events."""
     sampler = SamplerConfig()
     llm._decode(tok, pos, sampler, 2, span, gen)
     torch.cuda.synchronize()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     llm._decode(tok, pos, sampler, 8, span, gen)
     issue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 8 * 1e3
+    log(f"{label}: wrapper launches per step " + json.dumps(
+        {k: f.launches / 8 for k, f in WRAPPERS.items() if f.launches}))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         llm._decode(tok, pos, sampler, 4, span, gen)
@@ -1304,17 +1508,15 @@ def block32_paths(seed: int, writers: Writers, gen: torch.Generator,
         compare_compat(seed, gen, rep)
     launches = {}
     with phase("serve Q8_0"):
-        launches["mmq_q8_0"] = serve(llms["q8_0"], seed, Q8_0_KERNELS,
-                                     forbidden=KQUANT_KERNELS)["mmq_q8_0"]
+        launches["mmq_q8_0"] = serve(
+            llms["q8_0"], seed, Q8_0_KERNELS,
+            forbidden=other_mmq(Q8_0_KERNELS))["mmq_q8_0"]
     with phase("serve Q4_0"):
-        launches["mmq_legacy"] = serve(llms["q4_0"], seed, Q4_0_KERNELS,
-                                       forbidden=KQUANT_KERNELS)["mmq_legacy"]
+        launches["mmq_legacy"] = serve(
+            llms["q4_0"], seed, Q4_0_KERNELS,
+            forbidden=other_mmq(Q4_0_KERNELS))["mmq_legacy"]
     with phase("Q8_0 and Q4_0 decode step"):
-        gen_step = torch.Generator(device=DEVICE)
-        gen_step.manual_seed(seed)
-        tok = torch.as_tensor(np.random.default_rng(seed).integers(
-            0, CFG.vocab_size, MAX_BATCH), device=DEVICE)
-        pos = torch.full((MAX_BATCH,), 128, dtype=torch.int32, device=DEVICE)
+        tok, pos, gen_step = _step_inputs(seed)
         for fmt in ("q8_0", "q4_0"):
             decode_split(llms[fmt], tok, pos, 256,
                          f"TinyLlama {fmt} decode step, 16 slots, span 256",
@@ -1330,6 +1532,149 @@ def block32_paths(seed: int, writers: Writers, gen: torch.Generator,
     del llms
     torch.cuda.empty_cache()
     return launches
+
+
+def rms_norm_shadow(llm: LLM, tok: torch.Tensor, pos: torch.Tensor,
+                    span: int, gen: torch.Generator) -> int:
+    """K15 beside the model's RMSNorm over one 16-slot decode step: the
+    model keeps its plain torch norm (the JAX package does not route its
+    Pallas one either), and every norm the step computes (two per layer
+    and the final one) is recomputed by K15 from the same input and
+    weight and held against the plain version within TOL_NORM. Returns
+    K15's launches in that step."""
+    seen = []
+    model_norm = llama_mod.rms_norm
+
+    def shadow(x, weight, eps):
+        x2 = x.reshape(-1, x.shape[-1])
+        seen.append((x2, weight, eps, rms_norm(x2, weight, eps)))
+        return model_norm(x, weight, eps)
+
+    rms_norm.launches = 0
+    llama_mod.rms_norm = shadow
+    try:
+        llm._decode(tok, pos, SamplerConfig(), 1, span, gen)
+        torch.cuda.synchronize()
+    finally:
+        llama_mod.rms_norm = model_norm
+    launches = rms_norm.launches
+    worst = max(rel_err(got, rms_norm_plain(x, w, eps))[1]
+                for x, w, eps, got in seen)
+    log(f"K15 beside the model's {len(seen)} RMSNorms of one decode step "
+        f"({tuple(seen[0][0].shape)} {seen[0][0].dtype}): {launches} "
+        f"launches, worst rel {worst:.2e} (tol {TOL_NORM:g})")
+    if worst > TOL_NORM or launches != len(seen):
+        raise AssertionError("K15 disagrees with the model's RMSNorm")
+    return launches
+
+
+def _lowbit_cases(kernel: str, params: dict, prefix: str = "") -> list:
+    """(kernel, label, weight) for every projection of layer 0 (fused as
+    the loader fuses them) and the head."""
+    layer = params["layers"][0]
+    cases = [(kernel, f"{prefix}{key} ", layer[key])
+             for key in ("wqkv", "wq", "wk", "wv", "wo", "gate_up", "down")
+             if key in layer]
+    return cases + [(kernel, f"{prefix}head ", params["output"])]
+
+
+def _step_inputs(seed: int):
+    """The decode-step split's inputs: 16 token ids, every slot at 128."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    tok = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, CFG.vocab_size, MAX_BATCH), device=DEVICE)
+    return tok, torch.full((MAX_BATCH,), 128, dtype=torch.int32,
+                           device=DEVICE), gen
+
+
+def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
+                     rep: Report) -> dict:
+    """Q2_K and Q3_K: K12/K13 against their plain versions (the 2-layer
+    uniform files and the mix's unfused wq, wk) and through compat, K15
+    against its plain version, TinyLlama in llama.cpp's Q2_K mix served
+    at full width and depth, its decode step split with K15 beside its
+    norms, and the 2-layer card-vs-CPU checks of the mix and both uniform
+    files. Returns the launches of K12, K13 (the mix's serving run) and
+    K15 (its shadow step)."""
+    log("== Q2_K mix, Q2_K and Q3_K, bf16 activations (K12, K13, K1-K4); "
+        "K15 ==")
+    tags = {"mix": "q2k_mix", "q2_k": "q2_k_2l", "q3_k": "q3_k_2l"}
+    with phase("load the Q2_K mix and the 2-layer Q2_K/Q3_K"):
+        paths = {key: writers.wait(tag) for key, tag in tags.items()}
+        llms = {key: LLM(path, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                         device=DEVICE) for key, path in paths.items()}
+    mix = llms["mix"].params
+    layer = mix["layers"][0]
+    types = {key: (w.fmt if isinstance(w, QuantWeight) else str(w.dtype))
+             for key, w in layer.items()}
+    log(f"mix layer 0: {json.dumps(types)}; head {mix['output'].fmt}, "
+        f"token_embd resident as {mix['token_embd'].dtype}")
+    if "wqkv" in layer or "gate_up" not in layer:
+        raise AssertionError("the mix is not fused per format: "
+                             f"{sorted(layer)}")
+    with phase("K12/K13/K15 vs plain"):
+        compare_lowbit(_lowbit_cases("mmq_q2_k", llms["q2_k"].params)
+                       + [("mmq_q2_k", f"mix {key} ", layer[key])
+                          for key in ("wq", "wk")]
+                       + _lowbit_cases("mmq_q3_k", llms["q3_k"].params),
+                       gen, rep)
+        for fmt in ("q2_k", "q3_k"):
+            compare_compat(seed, gen, rep, fmt, KQUANT_COMPAT_KS)
+        compare_rms_norm(gen, rep)
+    with phase("serve the Q2_K mix"):
+        launches = serve(llms["mix"], seed, Q2K_MIX_KERNELS,
+                         forbidden=other_mmq(Q2K_MIX_KERNELS))
+    launches = {k: launches[k] for k in ("mmq_q2_k", "mmq_q3_k")}
+    with phase("Q2_K mix decode step"):
+        tok, pos, gen_step = _step_inputs(seed)
+        decode_split(llms["mix"], tok, pos, 256,
+                     "TinyLlama Q2_K mix decode step, 16 slots, span 256",
+                     gen_step)
+        launches["rms_norm"] = rms_norm_shadow(llms["mix"], tok, pos, 256,
+                                               gen_step)
+    with phase("reference checks of the mix, Q2_K and Q3_K (2 layers)"):
+        for key, llm in llms.items():
+            log(f"-- {key}")
+            cpu, _ = reference_check(paths[key], llm, seed,
+                                     ((2, MMOpts(), TOL_LOGITS),))
+            if key != "mix":
+                for t in ROUTE_TS:
+                    projection_check(cpu, llm, seed, t)
+    del llms, mix, layer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def iq4_paths(seed: int, writers: Writers, gen: torch.Generator,
+              rep: Report) -> dict:
+    """IQ4_NL and IQ4_XS (2-layer uniform files): K14 against its plain
+    version, the 24 prompts served through the IQ4_XS file, and the
+    card-vs-CPU checks of both. Returns K14's launches in that run."""
+    log("== IQ4_NL and IQ4_XS, 2 layers, bf16 activations (K14) ==")
+    tags = {"iq4_nl": "iq4_nl_2l", "iq4_xs": "iq4_xs_2l"}
+    with phase("write or reuse the IQ4 checkpoints (wait), load"):
+        paths = {fmt: writers.wait(tag) for fmt, tag in tags.items()}
+        llms = {fmt: LLM(path, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                         device=DEVICE) for fmt, path in paths.items()}
+    with phase("K14 vs plain"):
+        compare_lowbit([c for fmt, llm in llms.items()
+                        for c in _lowbit_cases("mmq_iq4", llm.params,
+                                               f"{fmt} ")], gen, rep)
+    with phase("serve IQ4_XS (2 layers)"):
+        launches = serve(llms["iq4_xs"], seed, IQ4_XS_KERNELS,
+                         forbidden=other_mmq(IQ4_XS_KERNELS))
+    with phase("reference checks of IQ4_NL and IQ4_XS (2 layers)"):
+        for fmt, llm in llms.items():
+            log(f"-- {fmt}")
+            cpu, _ = reference_check(paths[fmt], llm, seed,
+                                     ((2, MMOpts(), TOL_LOGITS),))
+            if fmt == "iq4_xs":
+                for t in ROUTE_TS:
+                    projection_check(cpu, llm, seed, t)
+    del llms
+    torch.cuda.empty_cache()
+    return {"mmq_iq4": launches["mmq_iq4"]}
 
 
 def smoke(seed: int, writers: Writers) -> list:
@@ -1398,6 +1743,7 @@ def smoke(seed: int, writers: Writers) -> list:
                           hd=CFG7B.head_dim, s=SEQ7B, spans=ATTN_SPANS_7B,
                           tag="kvh32 hd128 ")
     launches.update(block32_paths(seed, writers, gen, rep))
+    launches.update(kquant_low_paths(seed, writers, gen, rep))
 
     with phase("write or reuse the 7B checkpoint (wait)"):
         path7 = writers.wait("q4km_7b")
@@ -1427,6 +1773,9 @@ def smoke(seed: int, writers: Writers) -> list:
         cpu7, _ = reference_check(path7, llm7, seed,
                                   ((2, MMOpts(), TOL_LOGITS),))
         long_span_check(cpu7, llm7, seed)
+    del llm7, cpu7
+    torch.cuda.empty_cache()
+    launches.update(iq4_paths(seed, writers, gen, rep))
 
     # "ms"/"plain_ms": CUDA events around back-to-back calls (host time
     # included where a wrapper's host work outlasts its kernels);

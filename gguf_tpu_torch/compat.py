@@ -3,9 +3,10 @@
 The upstream reference exposes `mmq_q8_0(A, B, M, N, K)`, `mmq_q4_k` and
 `mmq_q6_k`, taking raw GGUF weight bytes and (N, K) activations and
 returning C = (A @ B.T).T of shape (N, M). The port's own copy of
-`gguf_tpu/compat.py` keeps that calling convention (and `mmq_q5_k`): each
-call wraps the bytes in a `QuantWeight` on `device` (the card unless the
-caller asks for the CPU) and dispatches to the port's MMQ kernel. As in
+`gguf_tpu/compat.py` keeps that calling convention (and `mmq_q2_k`,
+`mmq_q3_k`, `mmq_q5_k`): each call wraps the bytes in a `QuantWeight` on
+`device` (the card unless the caller asks for the CPU) and dispatches to
+the port's MMQ kernel. As in
 the reference, the activations are quantized to Q8_1 first
 (`act_quant=True`) and `precision` is "high" unless the keywords say
 otherwise.
@@ -56,10 +57,10 @@ def mmq_q6_k(a, b, m: int, n: int, k: int, **kw) -> torch.Tensor:
 
 
 def mmq_q2_k(a, b, m: int, n: int, k: int, **kw) -> torch.Tensor:
-    """Q2_K: not ported yet (ROADMAP.md, queue 2); raises."""
+    """Q2_K weight bytes x float (N, K) -> (N, M). K % 256 == 0."""
     return _mmq("q2_k", a, b, m, n, k, **kw)
 
 
 def mmq_q3_k(a, b, m: int, n: int, k: int, **kw) -> torch.Tensor:
-    """Q3_K: not ported yet (ROADMAP.md, queue 2); raises."""
+    """Q3_K weight bytes x float (N, K) -> (N, M). K % 256 == 0."""
     return _mmq("q3_k", a, b, m, n, k, **kw)

@@ -1,5 +1,6 @@
 // K5 quantize_q8_1_codes and K6 fake_quantize_q8_1: Q8_1 activation
-// quantization, one warp per 32-element block.
+// quantization, one warp per 32-element block; K15 rms_norm, one block per
+// row.
 //
 // Replaces gguf_tpu/ops/activation.py:_codes_kernel (K5: int8 codes, d and
 // s = fp16(d * sum(q)) per block) and :_fq_kernel (K6: the f32 round trip
@@ -20,11 +21,22 @@
 // fp16 rounding both give the same d for every fp16 amax.
 // With glu the element is h = act(gate) * up in f32, as mmq_q4_k's
 // act_quant route computes it, not rounded to bf16.
+//
+// K15 replaces gguf_tpu/ops/activation.py:_rmsnorm_kernel (reached through
+// rms_norm_pallas, which the JAX package does not route from its model):
+// out (n, d) f32 = x * rsqrt(mean(x^2) + eps) * w for x in f32, bf16 or
+// fp16. The TPU kernel is one block over the whole (n, d) tile; here one
+// block of 256 threads owns a row, sums its squares with warp shuffles and
+// one pass through shared memory, and scales it. Bytes bound it (one read
+// of x, one f32 write); at decode widths launch latency is what it costs.
+// rsqrtf may differ from the reference's rsqrt by an ulp.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mmq_common.cuh"
 
@@ -101,6 +113,37 @@ fake_quantize_q8_1_kernel(const void* __restrict__ x, float* __restrict__ out,
 
 int grid_for(int N, int K) { return (N * (K / 32) + WARPS - 1) / WARPS; }
 
+template <typename T>
+__device__ __forceinline__ float to_f32(T v) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) return __bfloat162float(v);
+  else if constexpr (std::is_same_v<T, __half>) return __half2float(v);
+  else return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * WARPS)
+rms_norm_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                float* __restrict__ out, int D, float eps) {
+  __shared__ float part[WARPS];
+  const T* xr = x + static_cast<size_t>(blockIdx.x) * D;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < D; i += 32 * WARPS) {
+    const float v = to_f32(xr[i]);
+    ss = fmaf(v, v, ss);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(FULL, ss, o);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < WARPS; ++i) total += part[i];
+  const float r = rsqrtf(__fadd_rn(__fdiv_rn(total, static_cast<float>(D)), eps));
+  float* o = out + static_cast<size_t>(blockIdx.x) * D;
+  for (int i = threadIdx.x; i < D; i += 32 * WARPS)
+    o[i] = __fmul_rn(__fmul_rn(to_f32(xr[i]), r), w[i]);
+}
+
 }  // namespace
 
 // x: (N, ldx) f32 or bf16 (ldx = K, or 2K = [gate | up] with glu 1/2 =
@@ -129,5 +172,27 @@ extern "C" int fake_quantize_q8_1_launch(const void* x, void* out, int N, int K,
   auto* op = static_cast<float*>(out);
   if (x_bf16) fake_quantize_q8_1_kernel<true><<<grid, block, 0, st>>>(x, op, N, K, ldx, glu);
   else fake_quantize_q8_1_kernel<false><<<grid, block, 0, st>>>(x, op, N, K, ldx, glu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (N, D) of dtype 0 f32, 1 bf16, 2 fp16; w: (D,) f32; out: (N, D) f32.
+extern "C" int rms_norm_launch(const void* x, const void* w, void* out, int N,
+                               int D, int dtype, float eps, void* stream) {
+  if (N <= 0 || D <= 0 || dtype < 0 || dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(N), block(32 * WARPS);
+  const float* wp = static_cast<const float*>(w);
+  float* op = static_cast<float*>(out);
+  if (dtype == 1) {
+    rms_norm_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), wp, op, D, eps);
+  } else if (dtype == 2) {
+    rms_norm_kernel<__half><<<grid, block, 0, st>>>(
+        static_cast<const __half*>(x), wp, op, D, eps);
+  } else {
+    rms_norm_kernel<float><<<grid, block, 0, st>>>(static_cast<const float*>(x),
+                                                   wp, op, D, eps);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // The MMQ tile of the 32-element-block formats, shared by K10
-// (mmq_q8_0.cu) and K11 (mmq_legacy.cu).
+// (mmq_q8_0.cu), K11 (mmq_legacy.cu) and K14 (mmq_iq4.cu).
 //
 // out (N, M) f32 = x (N, K) . W (M, K)^T, W read from the per-field arrays
 // QuantWeight splits the GGUF blocks into (rows keep the GGUF byte order):
@@ -8,15 +8,22 @@
 //   Q4_1: d | m fp16 (M, K/32) | qs                   w = d*q + m
 //   Q5_0: d | qh u32 (M, K/32) | qs                   w = d*(q-16)
 //   Q5_1: d | m | qh | qs                             w = d*q + m
-// Byte j of a legacy block's 16 qs bytes holds element j (low nibble) and
-// j+16 (high nibble); bit j of qh is element j's fifth bit.
+//   IQ4_NL: d | qs                                    w = d*KV[q]
+//   IQ4_XS: d fp16 (M, K/256) | scales_h u16 (M, K/256) | scales_l
+//           (M, K/256*4) | qs (M, K/32*16)            w = (d*ls)*KV[q]
+// Byte j of a block's 16 qs bytes holds element j (low nibble) and j+16
+// (high nibble); bit j of qh is element j's fifth bit. KV is the IQ4
+// codebook; IQ4_XS's sub-block ib of superblock s has the 6-bit scale
+// ls = (nibble ib of scales_l[s] | ((scales_h[s] >> 2*ib) & 3) << 4) - 32,
+// and its 16 code bytes sit where an IQ4_NL block's would, at 16*(8s+ib).
 //
 // The legacy formats follow the reference's split product: the staged
 // weight is d*q with the RAW code q (no offset), rounded to bf16 under
 // "fast" like the activations, and a per-32-block correction
 // corr[m] * bsum[n] is added in f32, where corr is m (_1) or -off*d (_0)
 // and bsum is the sum of the block's unrounded f32 activations (rounded
-// through fp16 under act_quant: Q8_1's s field). Q8_0 has no correction.
+// through fp16 under act_quant: Q8_1's s field). Q8_0 and the IQ4 formats
+// (symmetric: the codebook carries the sign) have no correction.
 //
 // Tile: a block of 256 threads owns BM = 64 rows and BN activation rows
 // and walks K in KT = 64-element steps (two 32-blocks) as the K-quant
@@ -26,36 +33,46 @@
 // is a warp reduction of the unrounded values), and every thread
 // accumulates a TM x TN micro-tile with f32 FMAs. A K that is a multiple
 // of 32 but not of 64 ends on a half step whose missing block is zero.
-//
-// Split K: at decode widths M/64 x N/BN blocks cannot fill 132 SMs (32
-// blocks at M = 2048), so the grid's z axis cuts the K steps into `splits`
-// ranges; each writes its partial tile to part[z] and a second launch adds
-// them in z order, so the result is the same on every run.
+// K is cut across the grid's z axis at decode widths (MMQ_SPLIT_DISPATCH).
 #pragma once
 
 #include "mmq_common.cuh"
 
 namespace block32 {
 
-enum Fmt { Q8_0 = 0, Q4_0 = 1, Q4_1 = 2, Q5_0 = 3, Q5_1 = 4 };
+enum Fmt { Q8_0 = 0, Q4_0 = 1, Q4_1 = 2, Q5_0 = 3, Q5_1 = 4, IQ4_NL = 5,
+           IQ4_XS = 6 };
 
 template <int F>
 struct Traits {
-  static constexpr bool LEGACY = F != Q8_0;
+  static constexpr bool LEGACY = F >= Q4_0 && F <= Q5_1;
   static constexpr bool AFFINE = F == Q4_1 || F == Q5_1;
   static constexpr bool FIVE = F == Q5_0 || F == Q5_1;
+  static constexpr bool IQ4 = F == IQ4_NL || F == IQ4_XS;
   static constexpr float OFFSET = F == Q4_0 ? 8.f : (F == Q5_0 ? 16.f : 0.f);
 };
+
+// KV[q] of the IQ4 codebook (ggml's kvalues_iq4nl: -127, -104, -83, -65,
+// -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113) as int8 bytes packed
+// little-endian into four words: one byte permute picks the entry, with no
+// table in memory and no divergent loads.
+__device__ __forceinline__ int iq4_value(unsigned q) {
+  const unsigned v = (q & 8) ? __byte_perm(0x26190D01u, 0x71594535u, q & 7)
+                             : __byte_perm(0xBFAD9881u, 0xF6EADDCFu, q & 7);
+  return static_cast<int>(static_cast<int8_t>(v & 0xFF));
+}
 
 __device__ __forceinline__ unsigned byte_of(const uint4& v, int i) {
   const unsigned w = i < 4 ? v.x : (i < 8 ? v.y : (i < 12 ? v.z : v.w));
   return (w >> (8 * (i & 3))) & 0xFF;
 }
 
+// mv: Q4_1/Q5_1 m, or IQ4_XS scales_h; qhv: Q5_0/Q5_1 qh, or IQ4_XS
+// scales_l (null where the format has no such field)
 template <int F, int BN, int TM, int TN, bool XBF16>
 __device__ __forceinline__ void mmq_tile(
-    const __half* __restrict__ dv, const __half* __restrict__ mv,
-    const uint32_t* __restrict__ qhv, const uint8_t* __restrict__ qs,
+    const __half* __restrict__ dv, const void* __restrict__ mv,
+    const void* __restrict__ qhv, const uint8_t* __restrict__ qs,
     const void* __restrict__ x, float* __restrict__ out,
     float* __restrict__ part, int M, int N, int K, int fast, int fp16_bsum,
     int steps_per_split) {
@@ -81,15 +98,26 @@ __device__ __forceinline__ void mmq_tile(
     const int j = 2 * s + b;            // this thread's 32-block of row r
     const bool ok = row_ok && j < nblk;
     const size_t blk = row * nblk + j;
-    const float d = ok ? __half2float(dv[blk]) : 0.f;
+    float d = 0.f;
     uint4 c = make_uint4(0, 0, 0, 0);
     unsigned hb = 0;
     if (ok) {
+      if constexpr (F == IQ4_XS) {   // K % 256 == 0: superblock blk / 8
+        const size_t sbk = blk >> 3;
+        const int ib = j & 7;
+        const unsigned sh = static_cast<const uint16_t*>(mv)[sbk];
+        const unsigned sl = static_cast<const uint8_t*>(qhv)[sbk * 4 + (ib >> 1)];
+        const int ls = static_cast<int>(((sl >> (4 * (ib & 1))) & 0xF) |
+                                        (((sh >> (2 * ib)) & 3) << 4)) - 32;
+        d = __fmul_rn(__half2float(dv[sbk]), static_cast<float>(ls));
+      } else {
+        d = __half2float(dv[blk]);
+      }
       if constexpr (F == Q8_0) {
         c = *reinterpret_cast<const uint4*>(qs + row * K + 32 * j + 16 * h);
       } else {
         c = *reinterpret_cast<const uint4*>(qs + blk * 16);
-        if constexpr (T::FIVE) hb = qhv[blk] >> (16 * h);
+        if constexpr (T::FIVE) hb = static_cast<const uint32_t*>(qhv)[blk] >> (16 * h);
       }
     }
 #pragma unroll
@@ -97,18 +125,23 @@ __device__ __forceinline__ void mmq_tile(
       int code;
       if constexpr (F == Q8_0) {
         code = static_cast<int>(static_cast<int8_t>(byte_of(c, i)));
+      } else if constexpr (T::IQ4) {
+        code = iq4_value((byte_of(c, i) >> (4 * h)) & 0xF);
       } else {
         code = static_cast<int>((byte_of(c, i) >> (4 * h)) & 0xF);
         if constexpr (T::FIVE) code |= static_cast<int>((hb >> i) & 1) << 4;
       }
-      float w = __fmul_rn(d, static_cast<float>(code));   // exact
+      float w = __fmul_rn(d, static_cast<float>(code));   // exact in f32
       if (fast) w = bf16_round(w);
       ws[32 * b + 16 * h + i][r] = w;
     }
     if constexpr (T::LEGACY) {
       if (h == 0) {
         float corr = 0.f;
-        if (ok) corr = T::AFFINE ? __half2float(mv[blk]) : __fmul_rn(d, -T::OFFSET);
+        if (ok) {
+          corr = T::AFFINE ? __half2float(static_cast<const __half*>(mv)[blk])
+                           : __fmul_rn(d, -T::OFFSET);
+        }
         cs[b][r] = corr;
       }
     }
@@ -148,43 +181,4 @@ __device__ __forceinline__ void mmq_tile(
   store_tile<BN, TM, TN>(dst, acc, M, N, m0, n0, tx, ty);
 }
 
-// out[i] = part[0][i] + part[1][i] + ... in split order
-__global__ void __launch_bounds__(256)
-add_splits(const float* __restrict__ part, float* __restrict__ out, int splits,
-           size_t total) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = part[i];
-  for (int z = 1; z < splits; ++z) s += part[static_cast<size_t>(z) * total + i];
-  out[i] = s;
-}
-
 }  // namespace block32
-
-// Instantiate and launch KERNEL<BN, TM, TN, XBF16> over a (M/64, N/BN,
-// splits) grid, then the split sum when splits > 1; the caller returns
-// cudaGetLastError().
-#define BLOCK32_DISPATCH(KERNEL, M, N, splits, x_bf16, stream, out, part, ...) \
-  do {                                                                         \
-    const dim3 block(mmq::NTHREADS);                                           \
-    const int gx = ((M) + mmq::BM - 1) / mmq::BM;                              \
-    if ((N) <= 8) {                                                            \
-      const dim3 grid(gx, ((N) + 7) / 8, (splits));                            \
-      if (x_bf16) KERNEL<8, 2, 1, true><<<grid, block, 0, stream>>>(__VA_ARGS__); \
-      else KERNEL<8, 2, 1, false><<<grid, block, 0, stream>>>(__VA_ARGS__);   \
-    } else if ((N) <= 16) {                                                    \
-      const dim3 grid(gx, ((N) + 15) / 16, (splits));                          \
-      if (x_bf16) KERNEL<16, 2, 2, true><<<grid, block, 0, stream>>>(__VA_ARGS__); \
-      else KERNEL<16, 2, 2, false><<<grid, block, 0, stream>>>(__VA_ARGS__);  \
-    } else {                                                                   \
-      const dim3 grid(gx, ((N) + 63) / 64, (splits));                          \
-      if (x_bf16) KERNEL<64, 4, 4, true><<<grid, block, 0, stream>>>(__VA_ARGS__); \
-      else KERNEL<64, 4, 4, false><<<grid, block, 0, stream>>>(__VA_ARGS__);  \
-    }                                                                          \
-    if ((splits) > 1) {                                                        \
-      const size_t total = static_cast<size_t>(N) * (M);                       \
-      block32::add_splits<<<static_cast<unsigned>((total + 255) / 256), 256, 0, \
-                            stream>>>(                                        \
-          part, out, (splits), total);                                         \
-    }                                                                          \
-  } while (0)

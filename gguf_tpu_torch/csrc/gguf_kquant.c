@@ -1,6 +1,6 @@
 /*
- * gguf_kquant.c — the Q4_K / Q5_K / Q6_K quantizers, bit-exact with
- * GGML's quantize_row_q{4,5,6}_K_ref.
+ * gguf_kquant.c — the Q2_K / Q3_K / Q4_K / Q5_K / Q6_K quantizers,
+ * bit-exact with GGML's quantize_row_q{2,3,4,5,6}_K_ref.
  *
  * The port's own copy of the quantizer cores of gguf_tpu's C codec
  * (csrc/gguf_kquant.c); only what the checkpoint writer needs is kept. No
@@ -34,6 +34,8 @@
 #define Q4K_BYTES 144     /* 2(d) + 2(dmin) + 12(scales) + 128(qs) */
 #define Q5K_BYTES 176     /* 2(d) + 2(dmin) + 12(scales) + 32(qh) + 128(qs) */
 #define Q6K_BYTES 210     /* 128(ql) + 64(qh) + 16(scales) + 2(d)  */
+#define Q2K_BYTES 84      /* 16(scales) + 64(qs) + 2(d) + 2(dmin)  */
+#define Q3K_BYTES 110     /* 32(hmask) + 64(qs) + 12(scales) + 2(d) */
 
 static inline int imin(int a, int b) { return a < b ? a : b; }
 static inline int imax(int a, int b) { return a > b ? a : b; }
@@ -83,15 +85,17 @@ static void q4k_scale_min_at(int j, const uint8_t *s, uint8_t *sc, uint8_t *mn) 
 /*
  * Weighted affine grid fit: find (scale, min) minimizing
  *   sum_i w_i * (scale*L_i + min - x_i)^2,  L_i in [0, nmax].
- * Grid-searches candidate inverse scales (GGML make_qkx2_quants with the
- * weighted squared error, as Q4_K and Q5_K use it), refining each
- * candidate with the weighted least-squares closed form. Float op order
- * is kept identical to the GGML spec so quantized bytes match llama.cpp.
+ * Grid-searches candidate inverse scales (GGML make_qkx2_quants; Q4_K and
+ * Q5_K use use_mad=0, the weighted squared error, Q2_K use_mad=1, the
+ * weighted absolute error), refining each candidate with the weighted
+ * least-squares closed form. Float op order is kept identical to the GGML
+ * spec so quantized bytes match llama.cpp.
  * Returns scale; *neg_min gets -min (>= 0).
  */
 static float q4k_fit_affine(int n, int nmax, const float *x, const float *w,
                             uint8_t *L, float *neg_min, uint8_t *Ltmp,
-                            float grid_lo, float grid_step, int grid_n) {
+                            float grid_lo, float grid_step, int grid_n,
+                            int use_mad) {
     float vmin = x[0], vmax = x[0];
     float sum_w = w[0];
     float sum_x = sum_w * x[0];
@@ -115,7 +119,8 @@ static float q4k_fit_affine(int n, int nmax, const float *x, const float *w,
         int l = nearest_int(iscale * (x[i] - vmin));
         L[i] = (uint8_t)imax(0, imin(nmax, l));
         float diff = scale * L[i] + vmin - x[i];
-        best_err += w[i] * (diff * diff);
+        diff = use_mad ? fabsf(diff) : diff * diff;
+        best_err += w[i] * diff;
     }
 
     for (int is = 0; is <= grid_n; ++is) {
@@ -140,7 +145,9 @@ static float q4k_fit_affine(int n, int nmax, const float *x, const float *w,
             float err = 0.0f;
             for (int i = 0; i < n; ++i) {
                 float diff = cand_scale * Ltmp[i] + cand_min - x[i];
-                err += w[i] * (diff * diff);
+                /* the same objective as best_err (MAD against MAD for
+                   Q2_K) */
+                err += w[i] * (use_mad ? fabsf(diff) : diff * diff);
             }
             if (err < best_err) {
                 memcpy(L, Ltmp, (size_t)n);
@@ -178,7 +185,7 @@ static void kquant_affine_block(const float *x, uint8_t *blk, uint8_t *L,
         for (int l = 0; l < 32; ++l) weights[l] = av_x + fabsf(xs[l]);
 
         sub_scale[j] = q4k_fit_affine(32, nmax, xs, weights, L + 32 * j,
-                                      &sub_min[j], Ltmp, grid_lo, 0.1f, grid_n);
+                                      &sub_min[j], Ltmp, grid_lo, 0.1f, grid_n, 0);
         if (sub_scale[j] > max_scale) max_scale = sub_scale[j];
         if (sub_min[j] > max_min) max_min = sub_min[j];
     }
@@ -279,6 +286,234 @@ GQ_EXPORT void gq_quantize_q5_k(const float *xall, uint8_t *out, int64_t n) {
             }
             m1 <<= 2;
             m2 <<= 2;
+        }
+    }
+}
+
+/* ---------------------------------------------------------------- Q2_K --- */
+/*
+ * Superblock layout (GGUF on-disk), 84 bytes / 256 elems:
+ *   [scales: 16 bytes][qs: 64 bytes][d: fp16][dmin: fp16]
+ * 16 sub-blocks of 16 elements; scales byte j = 4-bit sc_j | 4-bit mn_j << 4.
+ * qs packs 256 2-bit codes: for each 128-element half h, byte 32h+l (l<32)
+ * holds elems 128h+l, +32, +64, +96 at bit positions 0, 2, 4, 6.
+ * Element value: x = d*sc*q - dmin*mn  (per 16-element sub-block, q in [0,4)).
+ * Behavioral spec: GGML quantize_row_q2_K_ref — the same affine grid fit as
+ * Q4_K (make_qkx2_quants) with nmax=3, per-element |x| importance weights,
+ * grid rmin=-0.5, rdelta=0.1, nstep=15, and the MAD (absolute error)
+ * objective; sub-scales/mins quantized to 4 bits against q4scale=15.
+ */
+
+GQ_EXPORT void gq_quantize_q2_k(const float *xall, uint8_t *out, int64_t n) {
+    const int64_t nblocks = n / QK_K;
+
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+    for (int64_t ib = 0; ib < nblocks; ++ib) {
+        uint8_t L[QK_K];
+        uint8_t Ltmp[16];
+        float weights[16];
+        float sub_scale[QK_K / 16];
+        float sub_min[QK_K / 16];
+        const float *x = xall + ib * QK_K;
+        uint8_t *blk = out + ib * Q2K_BYTES;
+        uint8_t *scales = blk;
+        uint8_t *qs = blk + 16;
+
+        float max_scale = 0.0f;
+        float max_min = 0.0f;
+        for (int j = 0; j < QK_K / 16; ++j) {
+            const float *xs = x + 16 * j;
+            for (int l = 0; l < 16; ++l) weights[l] = fabsf(xs[l]);
+            sub_scale[j] = q4k_fit_affine(16, 3, xs, weights, L + 16 * j,
+                                          &sub_min[j], Ltmp, -0.5f, 0.1f, 15, 1);
+            if (sub_scale[j] > max_scale) max_scale = sub_scale[j];
+            if (sub_min[j] > max_min) max_min = sub_min[j];
+        }
+
+        const float q4scale = 15.0f;
+        uint16_t d_bits, dmin_bits;
+        if (max_scale > 0.0f) {
+            float iscale = q4scale / max_scale;
+            for (int j = 0; j < QK_K / 16; ++j)
+                scales[j] = (uint8_t)nearest_int(iscale * sub_scale[j]);
+            d_bits = fp32_to_fp16(max_scale / q4scale);
+        } else {
+            for (int j = 0; j < QK_K / 16; ++j) scales[j] = 0;
+            d_bits = fp32_to_fp16(0.0f);
+        }
+        if (max_min > 0.0f) {
+            float iscale = q4scale / max_min;
+            for (int j = 0; j < QK_K / 16; ++j)
+                scales[j] |= (uint8_t)(nearest_int(iscale * sub_min[j]) << 4);
+            dmin_bits = fp32_to_fp16(max_min / q4scale);
+        } else {
+            dmin_bits = fp32_to_fp16(0.0f);
+        }
+        memcpy(blk + 80, &d_bits, 2);
+        memcpy(blk + 82, &dmin_bits, 2);
+
+        /* re-quantize L against the 4-bit-rounded scales */
+        for (int j = 0; j < QK_K / 16; ++j) {
+            const float d = fp16_to_fp32(d_bits) * (scales[j] & 0xF);
+            if (!d) continue;
+            const float dm = fp16_to_fp32(dmin_bits) * (scales[j] >> 4);
+            for (int l = 0; l < 16; ++l) {
+                int q = nearest_int((x[16 * j + l] + dm) / d);
+                L[16 * j + l] = (uint8_t)imax(0, imin(3, q));
+            }
+        }
+
+        for (int h = 0; h < QK_K; h += 128) {
+            uint8_t *q = qs + h / 4;
+            for (int l = 0; l < 32; ++l)
+                q[l] = (uint8_t)(L[h + l] | (L[h + l + 32] << 2) |
+                                 (L[h + l + 64] << 4) | (L[h + l + 96] << 6));
+        }
+    }
+}
+
+/* ---------------------------------------------------------------- Q3_K --- */
+/*
+ * Superblock layout, 110 bytes / 256 elems:
+ *   [hmask: 32 bytes][qs: 64 bytes][scales: 12 bytes][d: fp16]
+ * 16 sub-blocks of 16 elements with 6-bit scales sc in [0,64) packed as:
+ *   byte j   (j<8): low 4 bits of sc_j | (j>=8: high nibble holds sc_{j+8}'s
+ *                   low 4 bits — i.e. byte j-8's high nibble for j in 8..15)
+ *   byte 8+i (i<4): top-2-bits of sc_{i}, sc_{4+i}, sc_{8+i}, sc_{12+i} at
+ *                   bit positions 0, 2, 4, 6.
+ * qs packs the low 2 bits exactly like Q2_K's qs; hmask byte l (l<32) holds
+ * the third bit of elems {32b + l} at bit position b.
+ * Element value: x = d*(sc-32)*q with q = (low2 | hbit<<2) - 4 in [-4, 4).
+ * Behavioral spec: GGML quantize_row_q3_K_ref (make_q3_quants with nmax=4,
+ * do_rmse=true: x^2-weighted fit with 5 rounds of coordinate descent).
+ */
+
+static float q3k_fit_signed(int n, int nmax, const float *x, int8_t *L) {
+    float max = 0.0f, amax = 0.0f;
+    for (int i = 0; i < n; ++i) {
+        float ax = fabsf(x[i]);
+        if (ax > amax) {
+            amax = ax;
+            max = x[i];
+        }
+    }
+    if (amax < 1e-15f) {
+        for (int i = 0; i < n; ++i) L[i] = 0;
+        return 0.0f;
+    }
+    float iscale = -nmax / max;
+    float sumlx = 0.0f, suml2 = 0.0f;
+    for (int i = 0; i < n; ++i) {
+        int l = nearest_int(iscale * x[i]);
+        l = imax(-nmax, imin(nmax - 1, l));
+        L[i] = (int8_t)l;
+        float w = x[i] * x[i];
+        sumlx += w * x[i] * l;
+        suml2 += w * l * l;
+    }
+    for (int itry = 0; itry < 5; ++itry) {
+        int n_changed = 0;
+        for (int i = 0; i < n; ++i) {
+            float w = x[i] * x[i];
+            float slx = sumlx - w * x[i] * L[i];
+            if (slx > 0.0f) {
+                float sl2 = suml2 - w * L[i] * L[i];
+                int new_l = nearest_int(x[i] * sl2 / slx);
+                new_l = imax(-nmax, imin(nmax - 1, new_l));
+                if (new_l != L[i]) {
+                    slx += w * x[i] * new_l;
+                    sl2 += w * new_l * new_l;
+                    if (sl2 > 0.0f && slx * slx * suml2 > sumlx * sumlx * sl2) {
+                        L[i] = (int8_t)new_l;
+                        sumlx = slx;
+                        suml2 = sl2;
+                        ++n_changed;
+                    }
+                }
+            }
+        }
+        if (!n_changed) break;
+    }
+    for (int i = 0; i < n; ++i) L[i] = (int8_t)(L[i] + nmax);
+    return sumlx / suml2;
+}
+
+GQ_EXPORT void gq_quantize_q3_k(const float *xall, uint8_t *out, int64_t n) {
+    const int64_t nblocks = n / QK_K;
+
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+    for (int64_t ib = 0; ib < nblocks; ++ib) {
+        int8_t L[QK_K];
+        float sub_scale[QK_K / 16];
+        const float *x = xall + ib * QK_K;
+        uint8_t *blk = out + ib * Q3K_BYTES;
+        uint8_t *hmask = blk;
+        uint8_t *qs = blk + 32;
+        uint8_t *scales = blk + 96;
+        uint8_t *d_ptr = blk + 108;
+
+        float max_scale = 0.0f, amax = 0.0f;
+        for (int j = 0; j < QK_K / 16; ++j) {
+            sub_scale[j] = q3k_fit_signed(16, 4, x + 16 * j, L + 16 * j);
+            float a = fabsf(sub_scale[j]);
+            if (a > amax) {
+                amax = a;
+                max_scale = sub_scale[j];
+            }
+        }
+
+        memset(scales, 0, 12);
+        uint16_t d_bits;
+        if (max_scale != 0.0f) {
+            float iscale = -32.0f / max_scale;
+            for (int j = 0; j < QK_K / 16; ++j) {
+                int l = nearest_int(iscale * sub_scale[j]);
+                l = imax(-32, imin(31, l)) + 32;
+                if (j < 8) scales[j] |= (uint8_t)(l & 0xF);
+                else scales[j - 8] |= (uint8_t)((l & 0xF) << 4);
+                l >>= 4;
+                scales[8 + j % 4] |= (uint8_t)(l << (2 * (j / 4)));
+            }
+            d_bits = fp32_to_fp16(1.0f / iscale);
+        } else {
+            d_bits = fp32_to_fp16(0.0f);
+        }
+        memcpy(d_ptr, &d_bits, 2);
+
+        /* re-quantize L against the 6-bit-rounded scales */
+        for (int j = 0; j < QK_K / 16; ++j) {
+            int sc = j < 8 ? scales[j] & 0xF : scales[j - 8] >> 4;
+            sc = (sc | (((scales[8 + j % 4] >> (2 * (j / 4))) & 3) << 4)) - 32;
+            float dj = fp16_to_fp32(d_bits) * sc;
+            if (!dj) continue;
+            for (int l = 0; l < 16; ++l) {
+                int q = nearest_int(x[16 * j + l] / dj);
+                L[16 * j + l] = (int8_t)(imax(-4, imin(3, q)) + 4);
+            }
+        }
+
+        memset(hmask, 0, 32);
+        int m = 0;
+        uint8_t hm = 1;
+        for (int j = 0; j < QK_K; ++j) {
+            if (L[j] > 3) {
+                hmask[m] |= hm;
+                L[j] = (int8_t)(L[j] - 4);
+            }
+            if (++m == QK_K / 8) {
+                m = 0;
+                hm <<= 1;
+            }
+        }
+        for (int h = 0; h < QK_K; h += 128) {
+            uint8_t *q = qs + h / 4;
+            for (int l = 0; l < 32; ++l)
+                q[l] = (uint8_t)(L[h + l] | (L[h + l + 32] << 2) |
+                                 (L[h + l + 64] << 4) | (L[h + l + 96] << 6));
         }
     }
 }

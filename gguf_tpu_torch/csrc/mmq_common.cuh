@@ -1,4 +1,6 @@
-// Shared tile machinery of the MMQ kernels (mmq_q4_k.cu, mmq_q6_k.cu).
+// Shared tile machinery of the MMQ kernels (K1 mmq_q4_k.cu, K2
+// mmq_q6_k.cu, K8 mmq_q5_k.cu, K12 mmq_q2_k.cu, K13 mmq_q3_k.cu, and the
+// block32.cuh tile of K10, K11 and K14).
 //
 // out (N, M) f32 = x (N, K) . W (M, K)^T with W dequantized from GGUF
 // blocks. A block of 256 threads owns BM = 64 output rows m and BN
@@ -101,6 +103,18 @@ __device__ __forceinline__ void store_tile(float* out, const float (&acc)[TM][TN
     }
 }
 
+// out[i] = part[0][i] + part[1][i] + ... in split order: the second launch
+// of a kernel whose grid cut K into ranges (MMQ_SPLIT_DISPATCH)
+__global__ void __launch_bounds__(256)
+add_splits(const float* __restrict__ part, float* __restrict__ out, int splits,
+           size_t total) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float s = part[i];
+  for (int z = 1; z < splits; ++z) s += part[static_cast<size_t>(z) * total + i];
+  out[i] = s;
+}
+
 }  // namespace mmq
 
 // Instantiate and launch a kernel template KERNEL<BN, TM, TN, XBF16> with
@@ -122,5 +136,36 @@ __device__ __forceinline__ void store_tile(float* out, const float (&acc)[TM][TN
       const dim3 grid(gx, ((N) + 63) / 64);                                    \
       if (x_bf16) KERNEL<64, 4, 4, true><<<grid, block, 0, stream>>>(__VA_ARGS__); \
       else KERNEL<64, 4, 4, false><<<grid, block, 0, stream>>>(__VA_ARGS__);  \
+    }                                                                          \
+  } while (0)
+
+// Split K: at decode widths M/64 x N/BN blocks cannot fill 132 SMs (32
+// blocks at M = 2048), so the grid's z axis cuts the K steps into `splits`
+// ranges; each block writes its partial tile to part[z] and a second launch
+// adds them in z order, so the result is the same on every run. Instantiate
+// and launch KERNEL<BN, TM, TN, XBF16> over a (M/64, N/BN, splits) grid,
+// then the split sum when splits > 1; the caller returns
+// cudaGetLastError().
+#define MMQ_SPLIT_DISPATCH(KERNEL, M, N, splits, x_bf16, stream, out, part, ...) \
+  do {                                                                         \
+    const dim3 block(mmq::NTHREADS);                                           \
+    const int gx = ((M) + mmq::BM - 1) / mmq::BM;                              \
+    if ((N) <= 8) {                                                            \
+      const dim3 grid(gx, ((N) + 7) / 8, (splits));                            \
+      if (x_bf16) KERNEL<8, 2, 1, true><<<grid, block, 0, stream>>>(__VA_ARGS__); \
+      else KERNEL<8, 2, 1, false><<<grid, block, 0, stream>>>(__VA_ARGS__);   \
+    } else if ((N) <= 16) {                                                    \
+      const dim3 grid(gx, ((N) + 15) / 16, (splits));                          \
+      if (x_bf16) KERNEL<16, 2, 2, true><<<grid, block, 0, stream>>>(__VA_ARGS__); \
+      else KERNEL<16, 2, 2, false><<<grid, block, 0, stream>>>(__VA_ARGS__);  \
+    } else {                                                                   \
+      const dim3 grid(gx, ((N) + 63) / 64, (splits));                          \
+      if (x_bf16) KERNEL<64, 4, 4, true><<<grid, block, 0, stream>>>(__VA_ARGS__); \
+      else KERNEL<64, 4, 4, false><<<grid, block, 0, stream>>>(__VA_ARGS__);  \
+    }                                                                          \
+    if ((splits) > 1) {                                                        \
+      const size_t total = static_cast<size_t>(N) * (M);                       \
+      mmq::add_splits<<<static_cast<unsigned>((total + 255) / 256), 256, 0,    \
+                        stream>>>(part, out, (splits), total);                 \
     }                                                                          \
   } while (0)

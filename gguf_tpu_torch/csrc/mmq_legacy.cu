@@ -21,7 +21,7 @@
 
 namespace {
 
-// one kernel name per format, so that BLOCK32_DISPATCH can add the tile
+// one kernel name per format, so that MMQ_SPLIT_DISPATCH can add the tile
 // shape's template arguments
 #define LEGACY_KERNEL(NAME, FMT)                                               \
   template <int BN, int TM, int TN, bool XBF16>                                \
@@ -70,22 +70,22 @@ extern "C" int mmq_legacy_launch(const void* d, const void* m, const void* qh,
   float* p = static_cast<float*>(part);
   switch (fmt) {
     case block32::Q4_0:
-      BLOCK32_DISPATCH(mmq_q4_0_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
+      MMQ_SPLIT_DISPATCH(mmq_q4_0_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
                        hp, qp, x, o, p, M, N, K, fast, fp16_bsum,
                        steps_per_split);
       break;
     case block32::Q4_1:
-      BLOCK32_DISPATCH(mmq_q4_1_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
+      MMQ_SPLIT_DISPATCH(mmq_q4_1_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
                        hp, qp, x, o, p, M, N, K, fast, fp16_bsum,
                        steps_per_split);
       break;
     case block32::Q5_0:
-      BLOCK32_DISPATCH(mmq_q5_0_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
+      MMQ_SPLIT_DISPATCH(mmq_q5_0_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
                        hp, qp, x, o, p, M, N, K, fast, fp16_bsum,
                        steps_per_split);
       break;
     default:
-      BLOCK32_DISPATCH(mmq_q5_1_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
+      MMQ_SPLIT_DISPATCH(mmq_q5_1_kernel, M, N, splits, x_bf16, st, o, p, dp, mp,
                        hp, qp, x, o, p, M, N, K, fast, fp16_bsum,
                        steps_per_split);
       break;

@@ -41,7 +41,7 @@ extern "C" int mmq_q8_0_launch(const void* d, const void* qs, const void* x,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   float* p = static_cast<float*>(part);
-  BLOCK32_DISPATCH(mmq_q8_0_kernel, M, N, splits, x_bf16, st, o, p,
+  MMQ_SPLIT_DISPATCH(mmq_q8_0_kernel, M, N, splits, x_bf16, st, o, p,
                    static_cast<const __half*>(d),
                    static_cast<const uint8_t*>(qs), x, o, p, M, N, K, fast,
                    steps_per_split);

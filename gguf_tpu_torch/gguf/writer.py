@@ -2,8 +2,8 @@
 
 The port's own copy of `gguf_tpu/gguf/writer.py`: `write_gguf`,
 `effective_quant_type`, and `quantize_tensor` for the formats the port
-reads (Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, and F32/F16); the
-others raise. The reference's activation-weighted (imatrix) quantizers
+reads (Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q4_1, Q5_0, Q5_1,
+IQ4_NL, IQ4_XS, and F32/F16); the others raise. The reference's activation-weighted (imatrix) quantizers
 are not ported. Files are byte-identical to the reference writer's.
 """
 
@@ -189,6 +189,5 @@ def quantize_tensor(x: np.ndarray, ggml_type: GGMLType) -> np.ndarray:
     fn = QUANTIZERS.get(GGMLType(ggml_type).name.lower())
     if fn is None:
         raise NotImplementedError(
-            f"quantizing to {GGMLType(ggml_type).name} is not ported "
-            "(ROADMAP.md, queue 2)")
+            f"quantizing to {GGMLType(ggml_type).name} is not supported")
     return np.asarray(fn(x))

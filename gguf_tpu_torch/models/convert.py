@@ -6,8 +6,8 @@ as `(fmt, gguf_bytes, (M, K))` — the bytes from
 plane order — and every float array as numpy, so this module needs no
 jax. The reference loader zero-pads M and K for TPU tiles (vocab rows,
 FFN width); the padding is stripped back to the config's true shapes,
-whole blocks at a time (256 elements for the K-quants, 32 for Q8_0 and
-the legacy formats).
+whole blocks at a time (256 elements for the K-quants and IQ4_XS, 32 for
+Q8_0, the legacy formats and IQ4_NL).
 """
 
 from __future__ import annotations

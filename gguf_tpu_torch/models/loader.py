@@ -91,9 +91,9 @@ def write_random_llama_gguf(path: str, cfg: LlamaConfig,
     Byte-identical to `gguf_tpu.models.write_random_llama_gguf(path, cfg,
     fmt, seed, extra_metadata)` with arch "llama": the same generator
     draws in the same order. Projections and the embedding are quantized
-    to `fmt`; the output head is Q6_K for K-quant `fmt` (llama.cpp's
-    Q4_K_M recipe) and `fmt` otherwise (Q8_0, Q4_0, ...); norms are F32
-    ones."""
+    to `fmt`; the output head is Q6_K for Q4_K, Q5_K and Q6_K `fmt`
+    (llama.cpp's Q4_K_M recipe) and `fmt` otherwise (Q2_K, Q3_K, Q8_0,
+    Q4_0, IQ4_XS, ...); norms are F32 ones."""
     rng = np.random.default_rng(seed)
     d, f, v = cfg.dim, cfg.ffn_dim, cfg.vocab_size
     q_d = cfg.n_heads * cfg.head_dim

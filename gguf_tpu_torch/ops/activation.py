@@ -1,5 +1,6 @@
 """Q8_1 activation quantization: kernels K5 (codes) and K6 (fake-quant),
-each beside its plain PyTorch version, and the gated-MLP activation.
+each beside its plain PyTorch version, the gated-MLP activation, and the
+one-block RMSNorm, kernel K15.
 
 Counterpart of `gguf_tpu/ops/activation.py`: `quantize_q8_1_codes`
 (Pallas `_codes_kernel`) and `fake_quantize_q8_1` (Pallas `_fq_kernel` at
@@ -21,9 +22,16 @@ codec `gguf_tpu/quant/q8_1.py` rounds sum(q) to fp16 before the product
 quantizes h = act(gate) * up, computed in f32 and not rounded to bf16
 (`gguf_tpu/ops/mmq_q4_k.py:mmq_q4_k` under act_quant).
 
+`rms_norm(x, weight, eps)` is the counterpart of `rms_norm_pallas`
+(Pallas `_rmsnorm_kernel`): (n, d) in f32, bf16 or fp16 -> (n, d) f32,
+x * rsqrt(mean(x^2) + eps) * w. Like the JAX package, the port's model
+does not route it (`models/llama.py:rms_norm` stays plain torch): it is a
+public op, timed on the card beside torch's forms.
+
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor
-they launch K5 / K6 or raise. `quantize_q8_1_codes.launches` counts K5
-launches and `fake_quantize_q8_1.launches` K6 launches.
+they launch K5 / K6 / K15 or raise. `quantize_q8_1_codes.launches` counts
+K5 launches, `fake_quantize_q8_1.launches` K6 and `rms_norm.launches` K15
+launches.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ BLOCK = 32
 GLU_CODES = {None: 0, "silu": 1, "gelu": 2}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"quantize_q8_1_launch": [_VP] * 4 + [_I] * 5 + [_VP],
-        "fake_quantize_q8_1_launch": [_VP] * 2 + [_I] * 5 + [_VP]}
+        "fake_quantize_q8_1_launch": [_VP] * 2 + [_I] * 5 + [_VP],
+        "rms_norm_launch": [_VP] * 3 + [_I] * 3 + [ctypes.c_float, _VP]}
+_NORM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def glu_plain(b: torch.Tensor, glu: str | None) -> torch.Tensor:
@@ -168,3 +178,50 @@ def fake_quantize_q8_1(x: torch.Tensor, *,
 
 quantize_q8_1_codes.launches = 0
 fake_quantize_q8_1.launches = 0
+
+
+# ------------------------------------------------------ K15: RMSNorm ---
+
+
+def _check_norm(x: torch.Tensor, weight: torch.Tensor) -> None:
+    if x.dim() != 2 or x.dtype not in _NORM_DTYPES:
+        raise ValueError(f"rms_norm takes (n, d) float32, bfloat16 or "
+                         f"float16, got {x.dtype} {tuple(x.shape)}")
+    if weight.shape != (x.shape[1],) or not weight.is_floating_point():
+        raise ValueError(f"weight {tuple(weight.shape)} does not match "
+                         f"x {tuple(x.shape)}")
+    if weight.device != x.device:
+        raise ValueError(f"x on {x.device}, weight on {weight.device}")
+
+
+def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Plain PyTorch version of K15 (any device): (n, d) f32."""
+    _check_norm(x, weight)
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return xf * torch.rsqrt(var + eps) * weight.float()
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """RMSNorm of (n, d) activations in f32, bf16 or fp16 with a (d,)
+    weight: (n, d) float32, x * rsqrt(mean(x^2) + eps) * w."""
+    _check_norm(x, weight)
+    if x.device.type == "cpu":
+        return rms_norm_plain(x, weight, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm runs on cpu or cuda, not {x.device}")
+    x = x.contiguous()
+    w = weight.float().contiguous()
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if x.shape[0]:
+        err = _lib().rms_norm_launch(
+            build.ptr(x), build.ptr(w), build.ptr(out), x.shape[0],
+            x.shape[1], _NORM_DTYPES[x.dtype], eps, build.stream_ptr())
+        build.check(err, "rms_norm")
+        rms_norm.launches += 1
+    return out
+
+
+rms_norm.launches = 0

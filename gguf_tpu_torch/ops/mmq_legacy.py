@@ -42,7 +42,7 @@ from ..quant.layouts import LEGACY, QuantWeight, legacy_offset, legacy_parts
 from . import build
 from .activation import fake_quant_2d
 from .mmq_q4_k import check_operands, check_precision, matmul_plain
-from .mmq_q8_0 import launch_block32
+from .mmq_q8_0 import format_wrapper, launch_split_k
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"mmq_legacy_launch": [_VP] * 7 + [_I] * 9 + [_VP]}
@@ -89,7 +89,7 @@ def mmq_legacy(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
     if b.device.type != "cuda":
         raise ValueError(f"mmq_legacy runs on cpu or cuda, not {b.device}")
     f = w.fields
-    out = launch_block32(
+    out = launch_split_k(
         _lib().mmq_legacy_launch, w, b,
         [(f["d"], 2), (f.get("m"), 2), (f.get("qh"), 4), (f["qs"], 16)],
         (FMT_CODES[w.fmt], int(act_quant)), precision, "mmq_legacy")
@@ -101,19 +101,7 @@ def mmq_legacy(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
 mmq_legacy.launches = 0
 
 
-def _make(fmt: str):
-    def fn(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
-           act_quant: bool = False) -> torch.Tensor:
-        if w.fmt != fmt:
-            raise ValueError(f"expected a {fmt} weight, got {w.fmt}")
-        return mmq_legacy(w, b, precision=precision, act_quant=act_quant)
-
-    fn.__name__ = fn.__qualname__ = f"mmq_{fmt}"
-    fn.__doc__ = f"C = (A @ B.T).T for {fmt.upper()} weights (K11)."
-    return fn
-
-
-mmq_q4_0 = _make("q4_0")
-mmq_q4_1 = _make("q4_1")
-mmq_q5_0 = _make("q5_0")
-mmq_q5_1 = _make("q5_1")
+mmq_q4_0 = format_wrapper(mmq_legacy, "q4_0", "K11")
+mmq_q4_1 = format_wrapper(mmq_legacy, "q4_1", "K11")
+mmq_q5_0 = format_wrapper(mmq_legacy, "q5_0", "K11")
+mmq_q5_1 = format_wrapper(mmq_legacy, "q5_1", "K11")

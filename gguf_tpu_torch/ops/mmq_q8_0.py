@@ -41,9 +41,9 @@ def _sms(index: int) -> int:
 
 
 def split_k(m: int, n: int, k: int, sms: int) -> tuple:
-    """How the block32 kernels cut K across the grid's z axis: (splits,
-    K steps per split). Enough blocks for two per SM when M and N give
-    too few (decode widths at M = 2048: 32 blocks), at most MAX_SPLITS;
+    """How the split-K kernels (K10-K14) cut K across the grid's z axis:
+    (splits, K steps per split). Enough blocks for two per SM when M and
+    N give too few (decode widths at M = 2048: 32 blocks), at most MAX_SPLITS;
     the partial sums are then added in split order by a second launch,
     so the result does not depend on the schedule."""
     bn = 8 if n <= 8 else 16 if n <= 16 else 64
@@ -54,9 +54,9 @@ def split_k(m: int, n: int, k: int, sms: int) -> tuple:
     return -(-steps // per), per
 
 
-def launch_block32(fn, w: QuantWeight, b: torch.Tensor, fields: list,
+def launch_split_k(fn, w: QuantWeight, b: torch.Tensor, fields: list,
                    extra: tuple, precision: str, what: str) -> torch.Tensor:
-    """Launch a block32 kernel (K10 or K11) on validated CUDA operands:
+    """Launch a split-K MMQ kernel (K10-K14) on validated CUDA operands:
     `fn(*fields, x, out, part, *extra, M, N, K, x_bf16, fast, splits,
     steps_per_split, stream)`; `fields` lists (tensor or None where the
     format has no such field, byte alignment the kernel's loads need)."""
@@ -76,6 +76,22 @@ def launch_block32(fn, w: QuantWeight, b: torch.Tensor, fields: list,
              int(precision == "fast"), splits, per, build.stream_ptr())
     build.check(err, what)
     return out
+
+
+def format_wrapper(kernel, fmt: str, tag: str):
+    """The public entry point of one format of a kernel that serves several
+    (K11's `mmq_q4_0` .. `mmq_q5_1`, K14's `mmq_iq4_nl` / `mmq_iq4_xs`):
+    it checks the weight's format and calls `kernel`, whose launch counter
+    it shares."""
+    def fn(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
+           act_quant: bool = False) -> torch.Tensor:
+        if w.fmt != fmt:
+            raise ValueError(f"expected a {fmt} weight, got {w.fmt}")
+        return kernel(w, b, precision=precision, act_quant=act_quant)
+
+    fn.__name__ = fn.__qualname__ = f"mmq_{fmt}"
+    fn.__doc__ = f"C = (A @ B.T).T for {fmt.upper()} weights ({tag})."
+    return fn
 
 
 def mmq_q8_0_plain(w: QuantWeight, b: torch.Tensor, *,
@@ -100,7 +116,7 @@ def mmq_q8_0(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
         return mmq_q8_0_plain(w, b, precision=precision)
     if b.device.type != "cuda":
         raise ValueError(f"mmq_q8_0 runs on cpu or cuda, not {b.device}")
-    out = launch_block32(_lib().mmq_q8_0_launch, w, b,
+    out = launch_split_k(_lib().mmq_q8_0_launch, w, b,
                          [(w.fields["d"], 2), (w.fields["qs"], 16)], (),
                          precision, "mmq_q8_0")
     if b.shape[0]:

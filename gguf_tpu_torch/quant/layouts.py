@@ -9,10 +9,12 @@ of the (M, K) matrix are runs of blocks, one row per output feature.
 
 Q4_K's 144-byte and Q5_K's 176-byte superblocks are 16-byte aligned and
 stay whole (field "blocks", (M, K/256*bytes) uint8). The other blocks are
-not 4-byte aligned (Q6_K 210 bytes; Q8_0 34; Q4_0 18, Q4_1 20, Q5_0 22,
-Q5_1 24), so they are split at load into per-field arrays, each a
-(M, K/block*field_bytes) uint8 tensor whose rows keep the GGUF byte
-order (`FIELDS`); `blocks()` reassembles the exact file bytes.
+not 4-byte aligned (Q2_K 84 bytes, Q3_K 110, Q6_K 210, IQ4_XS 136; Q8_0
+34; Q4_0 and IQ4_NL 18, Q4_1 20, Q5_0 22, Q5_1 24), so they are split at
+load into per-field arrays, each a (M, K/block*field_bytes) uint8 tensor
+whose rows keep the GGUF byte order (`FIELDS`), so that a kernel thread
+reads its codes in wide aligned loads; `blocks()` reassembles the exact
+file bytes.
 
 `dequantize()` runs in torch on the weight's own device, with the float
 ops of `QuantTensor.dequantize()` in the same order, so bit-equal to it.
@@ -25,18 +27,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .iq4 import KVALUES
+
 QK_K = 256
 QK = 32
-BLOCK_BYTES = {"q4_k": 144, "q5_k": 176, "q6_k": 210, "q8_0": 34,
-               "q4_0": 18, "q4_1": 20, "q5_0": 22, "q5_1": 24}
-BLOCK_ELEMS = {**{f: QK_K for f in ("q4_k", "q5_k", "q6_k")},
-               **{f: QK for f in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")}}
+BLOCK_BYTES = {"q2_k": 84, "q3_k": 110, "q4_k": 144, "q5_k": 176,
+               "q6_k": 210, "q8_0": 34, "q4_0": 18, "q4_1": 20, "q5_0": 22,
+               "q5_1": 24, "iq4_nl": 18, "iq4_xs": 136}
+BLOCK_ELEMS = {**{f: QK_K for f in ("q2_k", "q3_k", "q4_k", "q5_k", "q6_k",
+                                    "iq4_xs")},
+               **{f: QK for f in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1",
+                                  "iq4_nl")}}
 LEGACY = ("q4_0", "q4_1", "q5_0", "q5_1")
 # the K a format's MMQ takes: Q8_0 any multiple of 32; the legacy formats
-# multiples of 256, as the JAX package's `mmq_legacy` demands
-K_MULTIPLE = {**BLOCK_ELEMS, **{f: QK_K for f in LEGACY}}
+# and IQ4_NL multiples of 256, as the JAX package's `mmq_legacy` and
+# `mmq_iq4_nl` demand
+K_MULTIPLE = {**BLOCK_ELEMS, **{f: QK_K for f in (*LEGACY, "iq4_nl")}}
 # (field, first byte, end byte) of one block of each split format
 FIELDS = {
+    "q2_k": (("sc", 0, 16), ("qs", 16, 80), ("d", 80, 82),
+             ("dmin", 82, 84)),
+    "q3_k": (("hmask", 0, 32), ("qs", 32, 96), ("scales", 96, 108),
+             ("d", 108, 110)),
     "q6_k": (("ql", 0, 128), ("qh", 128, 192), ("sc", 192, 208),
              ("d", 208, 210)),
     "q8_0": (("d", 0, 2), ("qs", 2, 34)),
@@ -44,6 +56,9 @@ FIELDS = {
     "q4_1": (("d", 0, 2), ("m", 2, 4), ("qs", 4, 20)),
     "q5_0": (("d", 0, 2), ("qh", 2, 6), ("qs", 6, 22)),
     "q5_1": (("d", 0, 2), ("m", 2, 4), ("qh", 4, 8), ("qs", 8, 24)),
+    "iq4_nl": (("d", 0, 2), ("qs", 2, 18)),
+    "iq4_xs": (("d", 0, 2), ("scales_h", 2, 4), ("scales_l", 4, 8),
+               ("qs", 8, 136)),
 }
 
 
@@ -61,7 +76,8 @@ class QuantWeight:
         QuantWeight on `device`."""
         if fmt not in BLOCK_BYTES:
             raise NotImplementedError(
-                f"{fmt} weights are not ported yet (ROADMAP.md, queue 2)")
+                f"{fmt} weights are not supported: the port reads "
+                f"{sorted(BLOCK_BYTES)}")
         m, k = shape
         if k % K_MULTIPLE[fmt]:
             raise ValueError(f"{fmt}: K must be a multiple of "
@@ -210,6 +226,101 @@ def _dequant_legacy(w: QuantWeight) -> torch.Tensor:
     return (d[..., None] * (q - legacy_offset(w.fmt))).view(w.shape)
 
 
-_DEQUANT = {"q4_k": _dequant_kquant, "q5_k": _dequant_kquant,
+def _crumbs(qs: torch.Tensor, m: int, sb: int) -> torch.Tensor:
+    """(M, SB*64) Q2_K/Q3_K qs bytes -> (M, SB, 256) int32 2-bit codes in
+    element order: crumb j of byte 32h + l is element 128h + 32j + l."""
+    qv = qs.view(m, sb, 2, 1, 32).int()
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32,
+                          device=qs.device).view(1, 1, 1, 4, 1)
+    return ((qv >> shifts) & 3).view(m, sb, QK_K)
+
+
+def q2_k_parts(w: QuantWeight):
+    """Q2_K -> d*sc and dmin*mn per 16-element sub-block (M, K/256, 16)
+    and the 2-bit codes (M, K/256, 16, 16), all float32."""
+    m, k = w.shape
+    sb = k // QK_K
+    f = w.fields
+    scm = f["sc"].view(m, sb, 16).int()
+    d, dmin = _fp16(f["d"], m), _fp16(f["dmin"], m)
+    scale16 = d[..., None] * (scm & 15).float()
+    min16 = dmin[..., None] * (scm >> 4).float()
+    return scale16, min16, _crumbs(f["qs"], m, sb).float().view(m, sb, 16, 16)
+
+
+def _dequant_q2_k(w: QuantWeight) -> torch.Tensor:
+    """x = (d*sc)*q - dmin*mn per 16-element sub-block."""
+    scale16, min16, q = q2_k_parts(w)
+    return (scale16[..., None] * q - min16[..., None]).view(w.shape)
+
+
+def _q3_k_scales(scales: torch.Tensor, m: int, sb: int) -> torch.Tensor:
+    """(M, SB*12) packed Q3_K scale bytes -> (M, SB, 16) int32 in
+    [-32, 32): the low 4 bits of sub-block j in byte j (j < 8) or in the
+    high nibble of byte j - 8, its top 2 bits at bit 2*(j // 4) of byte
+    8 + j % 4."""
+    s = scales.view(m, sb, 12).int()
+    lo = torch.cat([s[..., :8] & 15, s[..., :8] >> 4], dim=-1)
+    j = torch.arange(16, device=scales.device)
+    hi = (s[..., 8 + j % 4] >> (2 * (j // 4)).int()) & 3
+    return (lo | (hi << 4)) - 32
+
+
+def _dequant_q3_k(w: QuantWeight) -> torch.Tensor:
+    """x = (d*sc) * q per 16-element sub-block, q = (low2 | hbit<<2) - 4:
+    bit b of hmask byte l is the third bit of element 32b + l."""
+    m, k = w.shape
+    sb = k // QK_K
+    f = w.fields
+    scale16 = _fp16(f["d"], m)[..., None] * _q3_k_scales(
+        f["scales"], m, sb).float()
+    hm = f["hmask"].view(m, sb, 1, 32).int()
+    bit = torch.arange(8, dtype=torch.int32, device=hm.device).view(1, 1, 8, 1)
+    hbit = ((hm >> bit) & 1).view(m, sb, QK_K)
+    q = ((_crumbs(f["qs"], m, sb) | (hbit << 2)) - 4).float()
+    return (scale16[..., None] * q.view(m, sb, 16, 16)).view(w.shape)
+
+
+def _iq4_values(qs: torch.Tensor, m: int) -> torch.Tensor:
+    """(M, nb*16) IQ4 code bytes -> (M, nb, 32) float32 codebook values:
+    byte j of each 16 holds element j (low nibble) and j + 16 (high)."""
+    q = qs.view(m, -1, 16).long()
+    codes = torch.cat([q & 15, q >> 4], dim=-1)
+    table = torch.from_numpy(KVALUES.astype(np.float32)).to(qs.device)
+    return table[codes]
+
+
+def _iq4_xs_scales(w: QuantWeight) -> torch.Tensor:
+    """IQ4_XS -> d*ls per 32-element sub-block (M, K/256, 8) float32,
+    ls = (scales_l nibble ib | ((scales_h >> 2*ib) & 3) << 4) - 32."""
+    m, k = w.shape
+    sb = k // QK_K
+    f = w.fields
+    sl = f["scales_l"].view(m, sb, 4).int()
+    lo = torch.stack([sl & 15, sl >> 4], dim=-1).view(m, sb, 8)
+    sh = f["scales_h"].view(m, sb, 2).int()
+    sh = sh[..., 0] | (sh[..., 1] << 8)
+    ib = torch.arange(8, dtype=torch.int32, device=sl.device)
+    hi = (sh[..., None] >> (2 * ib)) & 3
+    return _fp16(f["d"], m)[..., None] * ((lo | (hi << 4)) - 32).float()
+
+
+def _dequant_iq4_nl(w: QuantWeight) -> torch.Tensor:
+    """x = d * KVALUES[q] per 32-element block."""
+    m = w.shape[0]
+    d = _fp16(w.fields["d"], m)
+    return (d[..., None] * _iq4_values(w.fields["qs"], m)).view(w.shape)
+
+
+def _dequant_iq4_xs(w: QuantWeight) -> torch.Tensor:
+    """x = (d*ls) * KVALUES[q] per 32-element sub-block."""
+    m = w.shape[0]
+    scale32 = _iq4_xs_scales(w).view(m, -1)
+    return (scale32[..., None] * _iq4_values(w.fields["qs"], m)).view(w.shape)
+
+
+_DEQUANT = {"q2_k": _dequant_q2_k, "q3_k": _dequant_q3_k,
+            "q4_k": _dequant_kquant, "q5_k": _dequant_kquant,
             "q6_k": _dequant_q6_k, "q8_0": _dequant_q8_0,
-            **{f: _dequant_legacy for f in LEGACY}}
+            **{f: _dequant_legacy for f in LEGACY},
+            "iq4_nl": _dequant_iq4_nl, "iq4_xs": _dequant_iq4_xs}

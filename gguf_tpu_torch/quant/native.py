@@ -1,7 +1,7 @@
 """ctypes bridge to the port's K-quant quantizer core
 (`gguf_tpu_torch/csrc/gguf_kquant.c`, built by `ops/build.py` with gcc at
-first use): Q4_K, Q5_K and Q6_K, bit-identical to GGML's reference
-quantizers. Inputs are float arrays whose size is a multiple of 256;
+first use): Q2_K, Q3_K, Q4_K, Q5_K and Q6_K, bit-identical to GGML's
+reference quantizers. Inputs are float arrays whose size is a multiple of 256;
 outputs are flat uint8 GGUF block bytes.
 """
 
@@ -12,7 +12,8 @@ import ctypes
 import numpy as np
 
 QK_K = 256
-BLOCK_BYTES = {"q4_k": 144, "q5_k": 176, "q6_k": 210}
+BLOCK_BYTES = {"q2_k": 84, "q3_k": 110, "q4_k": 144, "q5_k": 176,
+               "q6_k": 210}
 _SIG = {f"gq_quantize_{fmt}": [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int64] for fmt in BLOCK_BYTES}
 
@@ -33,6 +34,16 @@ def _quantize(x: np.ndarray, fmt: str) -> np.ndarray:
     getattr(get_lib(), f"gq_quantize_{fmt}")(
         x.ctypes.data, out.ctypes.data, ctypes.c_int64(n))
     return out
+
+
+def quantize_q2_k(x: np.ndarray) -> np.ndarray:
+    """float array (size % 256 == 0) -> flat GGUF Q2_K bytes (uint8)."""
+    return _quantize(x, "q2_k")
+
+
+def quantize_q3_k(x: np.ndarray) -> np.ndarray:
+    """float array (size % 256 == 0) -> flat GGUF Q3_K bytes (uint8)."""
+    return _quantize(x, "q3_k")
 
 
 def quantize_q4_k(x: np.ndarray) -> np.ndarray:

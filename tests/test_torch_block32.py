@@ -187,10 +187,12 @@ def test_compat_matches_jax_compat(fmt, n):
 
 
 def test_compat_unported_formats_raise():
-    for fn in (compat.mmq_q2_k, compat.mmq_q3_k):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(np.zeros(84, np.uint8), np.zeros((1, 256), np.float32), 1, 1,
-               256, device="cpu")
+    """Every entry point of the reference's compat is ported (Q2_K and Q3_K
+    in tests/test_torch_kquant_low.py); bytes of a format the port does
+    not read raise."""
+    with pytest.raises(NotImplementedError, match="not supported"):
+        compat._mmq("iq2_xxs", np.zeros(66, np.uint8),
+                    np.zeros((1, 256), np.float32), 1, 1, 256, device="cpu")
 
 
 def test_split_k_fills_the_card_at_decode_widths():
@@ -215,8 +217,8 @@ def test_operand_checks_and_launch_counters():
         mmq_q8_0(w, torch.zeros(2, 256), precision="medium")
     with pytest.raises(ValueError):
         MMQ["q4_0"](w, torch.zeros(2, 256))          # wrong format
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MMQ["iq4_nl"]
+    with pytest.raises(NotImplementedError, match="no MMQ kernel"):
+        MMQ["iq2_xxs"]
     before = mmq_q8_0.launches
     x = torch.from_numpy(_acts(3, 256, seed=6))
     for kw in ({}, {"act_quant": True}, {"precision": "fast"}):

@@ -160,7 +160,7 @@ from gguf_tpu_torch.models import (GGMLType, LlamaConfig, MMOpts,
                                    write_random_llama_gguf)
 cfg = LlamaConfig(vocab_size=64, dim=256, n_layers=1, n_heads=4,
                   n_kv_heads=2, ffn_dim=256, max_seq_len=64)
-for fmt in ("Q4_K", "Q8_0", "Q4_0"):
+for fmt in ("Q4_K", "Q8_0", "Q4_0", "Q2_K", "Q3_K", "IQ4_NL", "IQ4_XS"):
     path = os.path.join({tmp!r}, fmt + ".gguf")
     write_random_llama_gguf(path, cfg, fmt=GGMLType[fmt], seed=2)
     for opts in (MMOpts(), MMOpts(act_quant=True, precision="high")):
@@ -169,6 +169,15 @@ for fmt in ("Q4_K", "Q8_0", "Q4_0"):
         assert len(res[0].token_ids) == 2, (fmt, opts, res)
 assert perplexity_of_gguf(path, list(range(40)), device="cpu",
                           act_quant=True, window=16) > 1.0
+import numpy as np, torch
+from gguf_tpu_torch.quant import QUANTIZERS
+for fmt in ("q2_k", "q3_k"):
+    a = QUANTIZERS[fmt](np.ones((2, 256), np.float32))
+    out = getattr(gguf_tpu_torch.compat, "mmq_" + fmt)(
+        a, np.ones((3, 256), np.float32), 2, 3, 256, device="cpu")
+    assert out.shape == (3, 2), out.shape
+x = torch.ones(2, 8)
+assert gguf_tpu_torch.ops.rms_norm(x, torch.ones(8), 1e-5).shape == (2, 8)
 assert sys.modules["jax"] is None and sys.modules["gguf_tpu"] is None
 # nothing loaded from the JAX package's files or its C core (csrc/)
 banned = [os.path.join({repo!r}, d) + os.sep for d in ("gguf_tpu", "csrc")]
@@ -183,10 +192,12 @@ print("ok")
 
 
 def test_port_runs_with_jax_unimportable(tmp_path):
-    """The port writes, loads and serves Q4_K, Q8_0 and Q4_0 checkpoints
-    on the CPU, with and without act_quant, and scores perplexity, with
-    `jax` and `gguf_tpu` unimportable; no module or shared library it
-    loads lies under the JAX package or the root `csrc/`."""
+    """The port writes, loads and serves Q4_K, Q8_0, Q4_0, Q2_K, Q3_K,
+    IQ4_NL and IQ4_XS checkpoints on the CPU, with and without act_quant,
+    scores perplexity, and runs compat's Q2_K/Q3_K entry points and the
+    RMSNorm op, with `jax` and `gguf_tpu` unimportable; no module or
+    shared library it loads lies under the JAX package or the root
+    `csrc/`."""
     code = _NO_JAX.format(repo=REPO, tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=str(tmp_path), timeout=300)

@@ -139,8 +139,8 @@ def test_operand_checks_and_unported_formats():
         mmq_q5_k(w, torch.zeros(2, K))
     with pytest.raises(ValueError, match="precision"):
         mmq_q5_k(w, torch.zeros(2, K), precision="medium")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MMQ["q2_k"]
+    with pytest.raises(NotImplementedError, match="no MMQ kernel"):
+        MMQ["iq2_xs"]
 
 
 def test_cpu_tensors_never_count_kernel_launches():
