@@ -16,7 +16,11 @@ every kernel's launch counter reset just before it and read just after:
 
 Q4_K_M with bf16 activations (kernels K1-K4):
 1. holds K1-K4 against their plain PyTorch versions on the card, at the
-   shapes the serving path gives them, timing both with CUDA events;
+   shapes the serving path gives them, timing both with CUDA events: K1
+   (tensor cores under "fast") at n = 1, 8, 9, 16, 17, 64, 65 and 512, both
+   sides of each of its tile widths, on every projection and on 256- and
+   1000-row slices of wqkv (M below one row block, M not a multiple of
+   it), and under "high" (the SIMT tile) on bf16 and on K6's f32 output;
 2. serves 24 token-id prompts (5..300 tokens, 32 new tokens each, greedy)
    through `LLM(max_batch=16, max_seq=2048).generate`;
 3. checks every logit of that run finite, and the card's logits for a
@@ -27,7 +31,7 @@ Q5_K_M under llama.cpp's Q8_1 numerics, `MMOpts(act_quant=True,
 precision="high")` (kernels K2-K8):
 4. holds K5 (Q8_1 codes) and K6 (fake-quant) bit-equal to their plain
    versions, K7 (the integer MMQ contract) within 1e-5 at every width it
-   is built for, K8 (Q5_K MMQ) within 1e-3 of max|ref| under "fast" and
+   is built for (n = 1, 4, 8, 16, the 256-row wk among the weights), K8 (Q5_K MMQ) within 1e-3 of max|ref| under "fast" and
    1e-5 under "high", on bf16 activations and on K6's f32 output, and K2
    on K6's output under "high" within 1e-5;
 5. serves the same 24 prompts and requires launches of K2-K8 on that run;
@@ -60,7 +64,8 @@ The 32-element-block formats (kernels K10 `mmq_q8_0` and K11
 
 The low-bit formats (kernels K12 `mmq_q2_k`, K13 `mmq_q3_k`, K14
 `mmq_iq4`, with K1-K4 in the Q2_K mix; K15 `rms_norm`):
-a. holds K12 and K13 against their plain versions at every projection of
+a. holds K1 against its plain version on the mix's 256-row Q4_K wv at every
+   width of 1., and K12 and K13 against theirs at every projection of
    the 2-layer Q2_K / Q3_K files, the head and the mix's unfused wq and
    wk, n = 1, 16, 64, 65, 512 (both sides of K12's n_pad <= 64 arm),
    "fast" (1e-3 of max|ref|) and "high" (1e-5), on bf16 activations and
@@ -189,6 +194,11 @@ ROUND_B = (600, 800, 1000, 1200, 1400, 1700, 2000, 2100, 2300, 2600, 2900,
 LONG_PROMPT = 2100             # the long-span reference check's prefill
 TILED_SPANS = (1024, 2048, 4096)
 MMQ_NS = (1, 16, 512)
+# K1 "fast": both sides of every tile width of its dispatch (8 | 16 | 64 |
+# 128 activation rows, 64 then 128 weight rows per block); "high" (the SIMT
+# tile) at a decode and a prefill width
+K1_NS = (1, 8, 9, 16, 17, 64, 65, 512)
+K1_HIGH_NS = (16, 512)
 BLOCK32_NS = (1, 16, 64, 65, 512)  # both sides of the reference's n <= 64 arm
 COMPAT_MNS, COMPAT_KS = (1, 4, 16), (32, 64, 96, 128)
 KQUANT_COMPAT_KS = (256, 512)   # Q2_K/Q3_K: K a multiple of the superblock
@@ -589,26 +599,52 @@ def _mmq_work(w, x, out, kind: str = "bf16") -> tuple:
     return nbytes(w, x, out), 2.0 * n * m * w.shape[1], kind
 
 
+def compare_k1(label: str, w, gen: torch.Generator, rep: Report, ns=K1_NS,
+               glu=None, precision: str = "fast", fq: bool = False) -> None:
+    """K1 against its plain version on one weight at each n: bf16
+    activations, or (fq) K6's f32 output as the act_quant path feeds the
+    float kernel; "fast" within TOL_MMQ, "high" within TOL_HIGH."""
+    for n in ns:
+        k = w.shape[1] * (2 if glu else 1)
+        x = torch.randn((n, k), generator=gen, device=DEVICE)
+        x = fake_quantize_q8_1(x) if fq else x.bfloat16()
+        got = mmq_q4_k(w, x, precision=precision, glu=glu)
+        ref = mmq_q4_k_plain(w, x, precision=precision, glu=glu)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        shape = f"{label} {w.shape[0]}x{w.shape[1]} n={n}"
+        if precision == "high":
+            shape += " high q8_1 f32" if fq else " high"
+        rep.add("mmq_q4_k", shape, err, rel,
+                TOL_MMQ if precision == "fast" else TOL_HIGH,
+                lambda: mmq_q4_k(w, x, precision=precision, glu=glu),
+                lambda: mmq_q4_k_plain(w, x, precision=precision, glu=glu),
+                work=_mmq_work(w, x, got,
+                               "bf16" if precision == "fast" else "f32"),
+                library=lambda: matmul_library(w, x))
+
+
 def compare_mmq(params: dict, gen: torch.Generator, rep: Report) -> None:
-    """K1 on the Q4_K_M projections, K2 on the head (bf16, "fast")."""
+    """K1 on the Q4_K_M projections at both sides of every tile width
+    ("fast", bf16 activations), on wqkv's first 256 rows (M below one row
+    block) and first 1000 (M not a multiple of it), and "high" (the SIMT
+    tile) on bf16 and on K6's f32 output; K2 on the head (bf16, "fast")."""
     layer = params["layers"][0]
+    wqkv = layer["wqkv"]
+    for name, key, glu in (("wqkv", "wqkv", None), ("wo", "wo", None),
+                           ("gate_up", "gate_up", None),
+                           ("down+glu", "down", "silu")):
+        compare_k1(name, layer[key], gen, rep, glu=glu)
+    for rows in (256, 1000):
+        compare_k1(f"wqkv[:{rows}]", wqkv.take_rows(torch.arange(rows)), gen,
+                   rep)
+    compare_k1("wqkv", wqkv, gen, rep, K1_HIGH_NS, precision="high")
+    compare_k1("down+glu", layer["down"], gen, rep, K1_HIGH_NS, glu="silu",
+               precision="high")
+    for name, key in (("wqkv", "wqkv"), ("down", "down")):
+        compare_k1(name, layer[key], gen, rep, FQ_NS, precision="high",
+                   fq=True)
     for n in MMQ_NS:
-        for name, key, glu in (("wqkv", "wqkv", None), ("wo", "wo", None),
-                               ("gate_up", "gate_up", None),
-                               ("down+glu", "down", "silu")):
-            w = layer[key]
-            k = w.shape[1] * (2 if glu else 1)
-            x = torch.randn((n, k), generator=gen, device=DEVICE).bfloat16()
-            got = mmq_q4_k(w, x, precision="fast", glu=glu)
-            ref = mmq_q4_k_plain(w, x, precision="fast", glu=glu)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, ref)
-            rep.add("mmq_q4_k", f"{name} {w.shape[0]}x{w.shape[1]} n={n}",
-                    err, rel, TOL_MMQ,
-                    lambda: mmq_q4_k(w, x, precision="fast", glu=glu),
-                    lambda: mmq_q4_k_plain(w, x, precision="fast", glu=glu),
-                    work=_mmq_work(w, x, got),
-                    library=lambda: matmul_library(w, x))
         w = params["output"]
         x = torch.randn((n, w.shape[1]), generator=gen, device=DEVICE).bfloat16()
         got = mmq_q6_k(w, x, precision="fast")
@@ -843,10 +879,13 @@ def compare_q8_1(gen: torch.Generator, rep: Report) -> None:
 
 def compare_i8(layer5: dict, layer4: dict, gen: torch.Generator,
                rep: Report) -> None:
-    """K7 on the Q5_K_M projections and the Q4_K_M gate_up, fed K5's
-    codes of bf16 activations."""
+    """K7 on the Q5_K_M projections, its 256-row wk (M below one row
+    block) and the Q4_K_M gate_up, fed K5's codes of bf16 activations."""
     weights = [(f"q5_k {key}", layer5[key])
                for key in ("wqkv", "wo", "gate_up", "down")]
+    q_d, kv_d = CFG.n_heads * CFG.head_dim, CFG.n_kv_heads * CFG.head_dim
+    weights.append(("q5_k wk", layer5["wqkv"].take_rows(
+        torch.arange(q_d, q_d + kv_d))))
     weights.append(("q4_k gate_up", layer4["gate_up"]))
     for n in I8_NS:
         for name, w in weights:
@@ -1613,7 +1652,8 @@ def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
     if "wqkv" in layer or "gate_up" not in layer:
         raise AssertionError("the mix is not fused per format: "
                              f"{sorted(layer)}")
-    with phase("K12/K13/K15 vs plain"):
+    with phase("K12/K13/K15 vs plain, K1 on the mix's wv"):
+        compare_k1("mix wv", layer["wv"], gen, rep)
         compare_lowbit(_lowbit_cases("mmq_q2_k", llms["q2_k"].params)
                        + [("mmq_q2_k", f"mix {key} ", layer[key])
                           for key in ("wq", "wk")]

@@ -47,8 +47,48 @@ def _load_f32(reader: GGUFReader, name: str, device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+_LAYER_TENSORS = ("attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v",
+                  "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+# the LlamaConfig fields `forward` applies; every other field must keep its
+# default (rope_scaling_kind: "none" or "linear" only)
+_COMPUTED_FIELDS = frozenset((
+    "vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads", "ffn_dim",
+    "norm_eps", "rope_theta", "rope_scale", "rope_scaling_kind",
+    "rope_freq_factors", "max_seq_len", "head_dim_override", "act_fn",
+    "rope_neox"))
+_NOT_PORTED = ("the port's forward does not compute it (ROADMAP.md, queue 1, "
+               "item 3)")
+
+
+def check_forward_computes(cfg: LlamaConfig) -> None:
+    """Raise NotImplementedError naming the first config field that the
+    port's `forward` would ignore: a field outside _COMPUTED_FIELDS that is
+    not at its default, or a rope scaling other than none/linear."""
+    if cfg.rope_scaling_kind not in ("none", "linear"):
+        raise NotImplementedError(
+            f"rope_scaling_kind = {cfg.rope_scaling_kind!r}: {_NOT_PORTED}")
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if f.name not in _COMPUTED_FIELDS and value != f.default:
+            raise NotImplementedError(f"{f.name} = {value!r}: {_NOT_PORTED}")
+
+
+def check_tensors_loaded(names, cfg: LlamaConfig) -> None:
+    """Raise NotImplementedError naming the first tensor `load_llama` would
+    not load (biases, fused qkv, q/k norms, experts, position_embd, ...)."""
+    known = {"token_embd.weight", "output.weight", "output_norm.weight",
+             "rope_freqs.weight"}
+    known.update(f"blk.{i}.{t}.weight" for i in range(cfg.n_layers)
+                 for t in _LAYER_TENSORS)
+    for name in names:
+        if name not in known:
+            raise NotImplementedError(f"tensor {name}: {_NOT_PORTED}")
+
+
 def load_llama(path: str, device):
-    """Load a llama-architecture GGUF onto `device`: (cfg, params)."""
+    """Load a llama-architecture GGUF onto `device`: (cfg, params). A file
+    whose config or tensors the port's forward would ignore is refused with
+    NotImplementedError before any weight is loaded."""
     device = torch.device(device)
     with GGUFReader(path) as reader:
         arch = reader.metadata.get("general.architecture", "llama")
@@ -57,6 +97,8 @@ def load_llama(path: str, device):
                 f"architecture {arch!r} is not ported yet (ROADMAP.md, "
                 "queue 1: remaining model families)")
         cfg = LlamaConfig.from_gguf_metadata(reader.metadata)
+        check_forward_computes(cfg)
+        check_tensors_loaded(reader.tensors, cfg)
         if "rope_freqs.weight" in reader.tensors:
             cfg = dataclasses.replace(cfg, rope_freq_factors=tuple(
                 float(x) for x in reader.load_array("rope_freqs.weight")))

@@ -6,7 +6,11 @@ C = (A @ B.T).T for Q4_K weights A (M, K) and float activations B (N, K):
 output (N, M) float32. Counterpart of `gguf_tpu/ops/mmq_q4_k.py:mmq_q4_k`
 (its Pallas bodies `_kernel_ink` at decode widths, `_kernel` at prefill
 widths, `_kernel_i8` under act_quant); the CUDA sources are
-`gguf_tpu_torch/csrc/mmq_q4_k.cu` (K1) and `mmq_i8.cu` (K7).
+`gguf_tpu_torch/csrc/mmq_q4_k.cu` (K1) and `mmq_i8.cu` (K7). K1 "fast"
+runs on bf16 tensor cores (wgmma) and K7 on int8 ones (mma.sync), both
+over the TMA-fed tile of `csrc/mmq_tc.cuh`; K1 "high" runs the SIMT f32
+tile of `csrc/kquant.cuh`, which K8 shares. Their wrappers pick the split
+of K (`split_k`) and allocate its scratch.
 
 `precision="fast"` rounds both operands to bf16 before the f32-accumulated
 product (the TPU's single-pass bf16 MXU contract); "high" keeps f32.
@@ -29,6 +33,7 @@ launches and `mmq_i8.launches` K7 launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,8 +43,53 @@ from .activation import GLU_CODES, codes_2d, fake_quant_2d, glu_plain
 
 I8_MAX_N = 16         # the JAX package's n gate for the integer contract
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"mmq_q4_k_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP]}
-_SIG_I8 = {"mmq_i8_launch": [_VP] * 5 + [_I] * 4 + [_VP]}
+_SIG = {"mmq_q4_k_launch": [_VP] * 5 + [_I] * 9 + [_VP]}
+_SIG_I8 = {"mmq_i8_launch": [_VP] * 6 + [_I] * 6 + [_VP]}
+KT = 64             # K elements per step of the SIMT tiles (mmq_common.cuh)
+                    # and per chunk of K1's tensor-core tile (mmq_tc.cuh)
+I8_KT = 128         # K elements per chunk of K7 (csrc/mmq_i8.cu)
+BM = 64             # output rows per block
+MAX_SPLITS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tc_tile(n: int) -> tuple:
+    """(weight rows, activation rows) of K1's "fast" tensor-core tile for n
+    activation rows (csrc/mmq_q4_k.cu picks the same): one warpgroup of 64
+    rows at n <= 64, two sharing each activation tile above."""
+    return (64, 8) if n <= 8 else (64, 16) if n <= 16 else \
+        (64, 64) if n <= 64 else (128, 128)
+
+
+def split_k(m: int, n: int, k: int, sms: int, tile: tuple | None = None,
+            per_sm: int = 2, kt: int = KT) -> tuple:
+    """How the split-K kernels (K1 "fast", K7, K10-K14) cut K across the
+    grid's z axis: (splits, K steps of `kt` per split), for a tile of (rows,
+    width) = `tile`, by default (BM, 8, 16 or 64 from n). Enough blocks
+    for `per_sm` per SM when M and N give too few (decode widths at M =
+    2048: 32 blocks), at most MAX_SPLITS; the partial sums are then added
+    in split order by a second launch, so the result does not depend on
+    the schedule. K1 "fast" asks for 4 per SM at decode widths, where its
+    blocks are small and hide latency with more of them."""
+    bm, bn = tile or (BM, 8 if n <= 8 else 16 if n <= 16 else 64)
+    steps = -(-k // kt)
+    blocks = -(-m // bm) * -(-n // bn)
+    want = max(1, min(MAX_SPLITS, steps, -(-per_sm * sms // blocks)))
+    per = -(-steps // want)
+    return -(-steps // per), per
+
+
+def split_scratch(splits: int, n: int, m: int,
+                  out: torch.Tensor) -> torch.Tensor:
+    """The (splits, n, m) f32 partial tiles of a split-K launch, or `out`
+    itself when K is not split."""
+    if splits == 1:
+        return out
+    return torch.empty((splits, n, m), dtype=torch.float32, device=out.device)
 
 
 def check_operands(w: QuantWeight, b: torch.Tensor, fmt: str, glu) -> int:
@@ -110,10 +160,21 @@ def _mmq_q4_k_float(w: QuantWeight, b: torch.Tensor, precision: str,
     out = torch.empty((n, m), dtype=torch.float32, device=b.device)
     if n == 0:
         return out
+    fast = precision == "fast"
+    per_sm = 4 if n <= 16 else 2   # decode widths: small blocks, more of them
+    splits, per = (split_k(m, n, k, sm_count(b.device.index or 0),
+                           tc_tile(n), per_sm) if fast else (1, 1))
+    # "fast" takes a bf16 (N, K) operand: b itself, or scratch the kernel
+    # fills first (bf16(b), or bf16(act(gate) * up) with glu)
+    direct = (b.dtype == torch.bfloat16 and glu is None
+              and b.data_ptr() % 16 == 0)
+    xb = b if direct or not fast else torch.empty(
+        (n, k), dtype=torch.bfloat16, device=b.device)
     err = _lib().mmq_q4_k_launch(
-        build.ptr(blocks), build.ptr(b), build.ptr(out), m, n, k,
-        b.shape[1], int(b.dtype == torch.bfloat16), GLU_CODES[glu],
-        int(precision == "fast"), build.stream_ptr())
+        build.ptr(blocks), build.ptr(b), build.ptr(out),
+        build.ptr(split_scratch(splits, n, m, out)), build.ptr(xb), m, n, k,
+        b.shape[1], int(b.dtype == torch.bfloat16), GLU_CODES[glu], int(fast),
+        splits, per, build.stream_ptr())
     build.check(err, "mmq_q4_k")
     mmq_q4_k.launches += 1
     return out
@@ -209,15 +270,17 @@ def _mmq_i8(w: QuantWeight, q: torch.Tensor, d: torch.Tensor,
     (m, k), n = w.shape, q.shape[0]
     q, d, s = q.contiguous(), d.contiguous(), s.contiguous()
     blocks = w.fields["blocks"]
-    if blocks.data_ptr() % 16 or q.data_ptr() % 8:
-        raise ValueError("mmq_i8: weight blocks must be 16-byte and codes "
-                         "8-byte aligned")
+    if any(t.data_ptr() % 16 for t in (blocks, q, d, s)):
+        raise ValueError("mmq_i8: weight blocks, codes, d and s must be "
+                         "16-byte aligned")
     out = torch.empty((n, m), dtype=torch.float32, device=q.device)
     if n == 0:
         return out
+    splits, per = split_k(m, n, k, sm_count(q.device.index or 0), kt=I8_KT)
     err = _lib_i8().mmq_i8_launch(
         build.ptr(blocks), build.ptr(q), build.ptr(d), build.ptr(s),
-        build.ptr(out), m, n, k, int(w.fmt == "q5_k"), build.stream_ptr())
+        build.ptr(out), build.ptr(split_scratch(splits, n, m, out)), m, n, k,
+        int(w.fmt == "q5_k"), splits, per, build.stream_ptr())
     build.check(err, "mmq_i8")
     mmq_i8.launches += 1
     return out

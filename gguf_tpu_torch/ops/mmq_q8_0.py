@@ -19,39 +19,17 @@ tensor it launches K10 or raises. `mmq_q8_0.launches` counts K10 launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ..quant.layouts import QuantWeight
 from . import build
 from .activation import fake_quant_2d
-from .mmq_q4_k import check_operands, check_precision, matmul_plain
+from .mmq_q4_k import (check_operands, check_precision, matmul_plain,
+                       sm_count, split_k, split_scratch)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"mmq_q8_0_launch": [_VP] * 5 + [_I] * 7 + [_VP]}
-KT = 64             # K elements per step of the tile (csrc/mmq_common.cuh)
-BM = 64             # output rows per block
-MAX_SPLITS = 8
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def split_k(m: int, n: int, k: int, sms: int) -> tuple:
-    """How the split-K kernels (K10-K14) cut K across the grid's z axis:
-    (splits, K steps per split). Enough blocks for two per SM when M and
-    N give too few (decode widths at M = 2048: 32 blocks), at most MAX_SPLITS;
-    the partial sums are then added in split order by a second launch,
-    so the result does not depend on the schedule."""
-    bn = 8 if n <= 8 else 16 if n <= 16 else 64
-    steps = -(-k // KT)
-    blocks = -(-m // BM) * -(-n // bn)
-    want = max(1, min(MAX_SPLITS, steps, -(-2 * sms // blocks)))
-    per = -(-steps // want)
-    return -(-steps // per), per
 
 
 def launch_split_k(fn, w: QuantWeight, b: torch.Tensor, fields: list,
@@ -67,13 +45,12 @@ def launch_split_k(fn, w: QuantWeight, b: torch.Tensor, fields: list,
     out = torch.empty((n, m), dtype=torch.float32, device=b.device)
     if n == 0:
         return out
-    splits, per = split_k(m, n, k, _sms(b.device.index or 0))
-    part = (torch.empty((splits, n, m), dtype=torch.float32, device=b.device)
-            if splits > 1 else out)
+    splits, per = split_k(m, n, k, sm_count(b.device.index or 0))
     err = fn(*(None if f is None else build.ptr(f) for f, _ in fields),
              build.ptr(b), build.ptr(out),
-             build.ptr(part), *extra, m, n, k, int(b.dtype == torch.bfloat16),
-             int(precision == "fast"), splits, per, build.stream_ptr())
+             build.ptr(split_scratch(splits, n, m, out)), *extra, m, n, k,
+             int(b.dtype == torch.bfloat16), int(precision == "fast"), splits,
+             per, build.stream_ptr())
     build.check(err, what)
     return out
 

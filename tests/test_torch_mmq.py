@@ -15,7 +15,8 @@ from gguf_tpu.quant import (dequantize_q4_k, dequantize_q5_k, dequantize_q6_k,
                             quantize_q4_k, quantize_q5_k, quantize_q6_k)
 from gguf_tpu.quant.layouts import to_soa
 from gguf_tpu_torch.ops import MMQ, mmq_q4_k, mmq_q5_k, mmq_q6_k
-from gguf_tpu_torch.ops.mmq_q4_k import dequantize_q4_k_plain
+from gguf_tpu_torch.ops.mmq_q4_k import (dequantize_q4_k_plain, split_k,
+                                         tc_tile)
 from gguf_tpu_torch.ops.mmq_q5_k import dequantize_q5_k_plain
 from gguf_tpu_torch.ops.mmq_q6_k import dequantize_q6_k_plain
 from gguf_tpu_torch.quant import QuantWeight, concat_m
@@ -148,3 +149,34 @@ def test_cpu_tensors_never_count_kernel_launches():
     before = mmq_q4_k.launches
     mmq_q4_k(w, torch.zeros(1, K))
     assert mmq_q4_k.launches == before
+
+
+@pytest.mark.parametrize("n,tile", [
+    (1, (64, 8)), (8, (64, 8)), (9, (64, 16)), (16, (64, 16)),
+    (17, (64, 64)), (64, (64, 64)), (65, (128, 128)), (512, (128, 128))])
+def test_tensor_core_tile_widths(n, tile):
+    """K1 "fast" picks its tile from n alone (csrc/mmq_q4_k.cu dispatches
+    the same widths): one warpgroup of 64 rows up to n = 64, two above."""
+    assert tc_tile(n) == tile
+
+
+@pytest.mark.parametrize("m,n,k,tile,per_sm,kt,want", [
+    # K1 "fast" at decode widths asks for 4 blocks per SM
+    (11264, 16, 2048, (64, 16), 4, 64, (3, 11)),
+    (2560, 16, 2048, (64, 16), 4, 64, (8, 4)),
+    (256, 16, 2048, (64, 16), 4, 64, (8, 4)),     # the Q2_K mix's wv
+    (22016, 16, 4096, (64, 16), 4, 64, (2, 32)),  # Llama-2-7B gate_up
+    # K1 "fast" at the 512-token prefill chunk: enough blocks, no split
+    (11264, 512, 2048, (128, 128), 2, 64, (1, 32)),
+    (2048, 512, 2048, (128, 128), 2, 64, (5, 7)),
+    # K7: 128-element chunks
+    (11264, 16, 2048, None, 2, 128, (2, 8)),
+    (256, 4, 2048, None, 2, 128, (8, 2)),
+])
+def test_split_k_of_the_tensor_core_tiles(m, n, k, tile, per_sm, kt, want):
+    """The wrappers' split of K for K1 "fast" and K7 on 132 SMs: every
+    split holds at least one chunk, as the launch functions check."""
+    splits, per = split_k(m, n, k, 132, tile, per_sm, kt)
+    assert (splits, per) == want
+    chunks = k // kt
+    assert (splits - 1) * per < chunks <= splits * per
