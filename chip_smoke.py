@@ -21,6 +21,8 @@ Q4_K_M with bf16 activations (kernels K1-K4):
    sides of each of its tile widths, on every projection and on 256- and
    1000-row slices of wqkv (M below one row block, M not a multiple of
    it), and under "high" (the SIMT tile) on bf16 and on K6's f32 output;
+   K2 (tensor cores under "fast") at the same widths on the head and its
+   first 1000 rows, and on K6's f32 output;
 2. serves 24 token-id prompts (5..300 tokens, 32 new tokens each, greedy)
    through `LLM(max_batch=16, max_seq=2048).generate`;
 3. checks every logit of that run finite, and the card's logits for a
@@ -67,16 +69,19 @@ The low-bit formats (kernels K12 `mmq_q2_k`, K13 `mmq_q3_k`, K14
 a. holds K1 against its plain version on the mix's 256-row Q4_K wv at every
    width of 1., and K12 and K13 against theirs at every projection of
    the 2-layer Q2_K / Q3_K files, the head and the mix's unfused wq and
-   wk, n = 1, 16, 64, 65, 512 (both sides of K12's n_pad <= 64 arm),
-   "fast" (1e-3 of max|ref|) and "high" (1e-5), on bf16 activations and
-   fed K6's output, and through `compat.mmq_q2_k` / `compat.mmq_q3_k` at
-   M, N in {1, 4, 16}; K15 against its plain version at n = 1, 16, 64,
+   wk (K12 also on the head's first 1000 rows), K13 at n = 1, 16, 64,
+   65, 512, K12 at the widths of 1. (both sides of its n_pad <= 64 arm
+   and of every tile of its tensor-core "fast" form), "fast" (1e-3 of
+   max|ref|) and "high" (1e-5), on bf16 activations and fed K6's output,
+   and through `compat.mmq_q2_k` / `compat.mmq_q3_k` at M, N in {1, 4,
+   16}, K = 256 and 512; K15 against its plain version at n = 1, 16, 64,
    d = 2048 and 4096, f32 and bf16 input (1e-6);
 b. serves the 24 prompts through the 22-layer Q2_K mix, requiring
    launches of K12, K13, K1, K2, K3 and K4 and none of the other MMQ
    kernels, then splits a 16-slot decode step at span 256 (host clock,
-   launches per step and `torch.profiler`) and recomputes every RMSNorm
-   of one such step with K15 beside the model's own (1e-6);
+   launches per step and `torch.profiler`, device time by kernel),
+   recomputes every RMSNorm of one such step with K15 beside the model's
+   own (1e-6), and times a 512-token prefill chunk;
 c. checks 2 layers of the mix and of the Q2_K and Q3_K files against the
    CPU run (logits within 1e-2), with the act_quant projection check of
    6 for Q2_K and Q3_K (routes K6+K12, K6+K13);
@@ -109,7 +114,10 @@ Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 
 `--profile` instead splits a 16-slot decode step of the Q5_K_M
 checkpoint with bf16 activations and under act_quant (host clock and
-`torch.profiler`), and checks nothing.
+`torch.profiler`), and checks nothing. `--mix-step` instead splits the
+Q2_K mix's decode step (twice) and times its 512-token prefill chunk, as
+b. does, and checks nothing; copied beside an earlier tree of the port it
+measures that tree, so two trees compare in one call.
 
 Prints the card's name and power limit, a per-shape table, seconds per
 phase and in total, one JSON line {"kernels": [...]} (per kernel its
@@ -194,10 +202,11 @@ ROUND_B = (600, 800, 1000, 1200, 1400, 1700, 2000, 2100, 2300, 2600, 2900,
 LONG_PROMPT = 2100             # the long-span reference check's prefill
 TILED_SPANS = (1024, 2048, 4096)
 MMQ_NS = (1, 16, 512)
-# K1 "fast": both sides of every tile width of its dispatch (8 | 16 | 64 |
-# 128 activation rows, 64 then 128 weight rows per block); "high" (the SIMT
-# tile) at a decode and a prefill width
-K1_NS = (1, 8, 9, 16, 17, 64, 65, 512)
+# the tensor-core tiles (K1, K2 and K12 "fast"): both sides of every tile
+# width of their dispatch (8 | 16 | 64 | 128 activation rows, 64 then 128
+# weight rows per block; K12's split arm up to 64, folded above); K1
+# "high" (the SIMT tile) at a decode and a prefill width
+TC_NS = (1, 8, 9, 16, 17, 64, 65, 512)
 K1_HIGH_NS = (16, 512)
 BLOCK32_NS = (1, 16, 64, 65, 512)  # both sides of the reference's n <= 64 arm
 COMPAT_MNS, COMPAT_KS = (1, 4, 16), (32, 64, 96, 128)
@@ -599,7 +608,7 @@ def _mmq_work(w, x, out, kind: str = "bf16") -> tuple:
     return nbytes(w, x, out), 2.0 * n * m * w.shape[1], kind
 
 
-def compare_k1(label: str, w, gen: torch.Generator, rep: Report, ns=K1_NS,
+def compare_k1(label: str, w, gen: torch.Generator, rep: Report, ns=TC_NS,
                glu=None, precision: str = "fast", fq: bool = False) -> None:
     """K1 against its plain version on one weight at each n: bf16
     activations, or (fq) K6's f32 output as the act_quant path feeds the
@@ -624,11 +633,30 @@ def compare_k1(label: str, w, gen: torch.Generator, rep: Report, ns=K1_NS,
                 library=lambda: matmul_library(w, x))
 
 
+def compare_k2(label: str, w, gen: torch.Generator, rep: Report, ns=TC_NS,
+               fq: bool = False) -> None:
+    """K2 "fast" (the tensor-core tile) against its plain version on one
+    Q6_K weight at each n: bf16 activations, or (fq) K6's f32 output, which
+    the wrapper rounds to bf16 in one pass first; within TOL_MMQ."""
+    for n in ns:
+        x = torch.randn((n, w.shape[1]), generator=gen, device=DEVICE)
+        x = fake_quantize_q8_1(x) if fq else x.bfloat16()
+        got = mmq_q6_k(w, x, precision="fast")
+        err, rel = rel_err(got, mmq_q6_k_plain(w, x, precision="fast"))
+        shape = f"{label} {w.shape[0]}x{w.shape[1]} n={n}"
+        rep.add("mmq_q6_k", shape + (" q8_1 f32" if fq else ""), err, rel,
+                TOL_MMQ, lambda: mmq_q6_k(w, x, precision="fast"),
+                lambda: mmq_q6_k_plain(w, x, precision="fast"),
+                work=_mmq_work(w, x, got),
+                library=lambda: matmul_library(w, x))
+
+
 def compare_mmq(params: dict, gen: torch.Generator, rep: Report) -> None:
     """K1 on the Q4_K_M projections at both sides of every tile width
     ("fast", bf16 activations), on wqkv's first 256 rows (M below one row
     block) and first 1000 (M not a multiple of it), and "high" (the SIMT
-    tile) on bf16 and on K6's f32 output; K2 on the head (bf16, "fast")."""
+    tile) on bf16 and on K6's f32 output; K2 "fast" on the head and its
+    first 1000 rows at the same widths, and on K6's f32 output."""
     layer = params["layers"][0]
     wqkv = layer["wqkv"]
     for name, key, glu in (("wqkv", "wqkv", None), ("wo", "wo", None),
@@ -644,17 +672,10 @@ def compare_mmq(params: dict, gen: torch.Generator, rep: Report) -> None:
     for name, key in (("wqkv", "wqkv"), ("down", "down")):
         compare_k1(name, layer[key], gen, rep, FQ_NS, precision="high",
                    fq=True)
-    for n in MMQ_NS:
-        w = params["output"]
-        x = torch.randn((n, w.shape[1]), generator=gen, device=DEVICE).bfloat16()
-        got = mmq_q6_k(w, x, precision="fast")
-        ref = mmq_q6_k_plain(w, x, precision="fast")
-        err, rel = rel_err(got, ref)
-        rep.add("mmq_q6_k", f"head {w.shape[0]}x{w.shape[1]} n={n}",
-                err, rel, TOL_MMQ, lambda: mmq_q6_k(w, x, precision="fast"),
-                lambda: mmq_q6_k_plain(w, x, precision="fast"),
-                work=_mmq_work(w, x, got),
-                library=lambda: matmul_library(w, x))
+    head = params["output"]
+    compare_k2("head", head, gen, rep)
+    compare_k2("head[:1000]", head.take_rows(torch.arange(1000)), gen, rep)
+    compare_k2("head", head, gen, rep, HEAD_NS, fq=True)
 
 
 def _random_cache(gen: torch.Generator, b: int, kvh: int, s: int, hd: int):
@@ -1037,13 +1058,14 @@ def _terms_max(w: QuantWeight, x: torch.Tensor) -> float:
 def compare_lowbit(cases: list, gen: torch.Generator, rep: Report) -> None:
     """K12, K13 and K14 against their plain versions, `cases` listing
     (kernel, label, weight): bf16 activations at BLOCK32_NS (both sides of
-    K12's n_pad <= 64 arm), "fast" (TOL_MMQ) and "high" (TOL_HIGH), timed;
-    and K6's f32 output, as the act_quant path feeds them, at n = 16 and
-    512 in both precisions."""
+    the n_pad <= 64 arm), for K12 at TC_NS (both sides of every width of
+    its tensor-core tile, whose arm follows its width), "fast" (TOL_MMQ)
+    and "high" (TOL_HIGH), timed; and K6's f32 output, as the act_quant
+    path feeds them, at n = 16 and 512 in both precisions."""
     for kernel, label, w in cases:
         fn, plain = LOWBIT[kernel]
         shape = f"{label}{w.shape[0]}x{w.shape[1]}"
-        for n in BLOCK32_NS:
+        for n in TC_NS if kernel == "mmq_q2_k" else BLOCK32_NS:
             x = torch.randn((n, w.shape[1]), generator=gen,
                             device=DEVICE).bfloat16()
             for prec in ("fast", "high"):
@@ -1390,7 +1412,62 @@ def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
     for e in kern[:8]:
         log(f"  {e.self_device_time_total / 4 / 1e3:8.3f} ms/step "
             f"{e.count / 4:6.1f}/step {e.key[:70]}")
+    log_groups(kern, 4, "/step")
     return kern
+
+
+# kernel-name pieces by which device time is summed per source
+KERNEL_GROUPS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q6_k", "add_splits",
+                 "to_bf16")
+
+
+def log_groups(kern: list, runs: int, unit: str) -> None:
+    """Device time and launches of the profiler's CUDA events `kern` per
+    run, summed over the kernels whose name holds each of KERNEL_GROUPS
+    (a kernel's template instances and tiles together; add_splits is the
+    split-K sum of K1, K12 and K13 alike)."""
+    parts = []
+    for name in KERNEL_GROUPS:
+        hit = [e for e in kern if name in e.key]
+        if hit:
+            ms = sum(e.self_device_time_total for e in hit) / runs / 1e3
+            count = sum(e.count for e in hit) / runs
+            parts.append(f"{name} {ms:.3f} ms ({count:.0f})")
+    if parts:
+        log(f"  by kernel{unit}: " + ", ".join(parts))
+
+
+def prefill_chunk(llm: LLM, toks: np.ndarray, start: int, label: str) -> None:
+    """One PREFILL_CHUNK-token prefill chunk into slot 0 at `start`: the
+    host clock over 3 calls ending in a sync, then `torch.profiler` over one
+    (device busy time, the top kernels, the sums of KERNEL_GROUPS)."""
+    chunk = engine_mod.PREFILL_CHUNK
+    span = llm._span_bucket(start + chunk)
+
+    def run():
+        llm._prefill(toks, 0, start, chunk - 1, span)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    log(f"{label} prefill of a {chunk}-token chunk at {start}, span {span}: "
+        f"{wall:.1f} ms, device busy {busy:.2f} ms; top 5:")
+    for e in kern[:5]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
+            f"{e.key[:70]}")
+    log_groups(kern, 1, "")
 
 
 def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
@@ -1423,16 +1500,7 @@ def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
                 f"GB/s, {n / HBM_BPS * 1e3:.4f} ms at 3,350 GB/s")
     toks = rng.integers(0, cfg.vocab_size, (1, engine_mod.PREFILL_CHUNK))
     for start in (0, SEQ7B - engine_mod.PREFILL_CHUNK):
-        span = llm._span_bucket(start + engine_mod.PREFILL_CHUNK)
-        llm._prefill(toks, 0, start, engine_mod.PREFILL_CHUNK - 1, span)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            llm._prefill(toks, 0, start, engine_mod.PREFILL_CHUNK - 1, span)
-        torch.cuda.synchronize()
-        log(f"7B prefill of a {engine_mod.PREFILL_CHUNK}-token chunk at "
-            f"{start}, span {span}: "
-            f"{(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
+        prefill_chunk(llm, toks, start, "7B")
 
 
 def long_span_check(cpu: tuple, llm: LLM, seed: int) -> None:
@@ -1484,6 +1552,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="split a decode step instead of the smoke run")
+    ap.add_argument("--mix-step", action="store_true",
+                    help="split the Q2_K mix's decode step and prefill chunk "
+                    "instead of the smoke run")
     ap.add_argument("--write", choices=sorted(CHECKPOINTS),
                     help=argparse.SUPPRESS)   # a checkpoint writer's child
     args = ap.parse_args()
@@ -1505,13 +1576,16 @@ def main() -> int:
     check_toolchain()
     with phase("build the GGUF quantizer core"):
         build.build("gguf_kquant")     # before the writers that use it
-    writers = Writers(args.seed, ("q5km",) if args.profile
-                      else tuple(CHECKPOINTS))
+    writers = Writers(args.seed, ("q5km",) if args.profile else
+                      ("q2k_mix",) if args.mix_step else tuple(CHECKPOINTS))
     try:
         with phase("build kernels"):
             build_kernels()
         if args.profile:
             profile_decode(writers.wait("q5km"), args.seed)
+            return 0
+        if args.mix_step:
+            mix_step(writers.wait("q2k_mix"), args.seed)
             return 0
         kernels = smoke(args.seed, writers)
     finally:
@@ -1627,6 +1701,26 @@ def _step_inputs(seed: int):
                            device=DEVICE), gen
 
 
+def _chunk_tokens(seed: int) -> np.ndarray:
+    """A prefill chunk's (1, PREFILL_CHUNK) seeded token ids."""
+    return np.random.default_rng(seed).integers(
+        0, CFG.vocab_size, (1, engine_mod.PREFILL_CHUNK))
+
+
+def mix_step(path: str, seed: int) -> None:
+    """`--mix-step`: the Q2_K mix's 16-slot decode step at span 256, split
+    as the smoke run splits it (twice), and its 512-token prefill chunk;
+    nothing is checked. It imports nothing the port's earlier trees lack,
+    so a copy of this script beside an earlier tree measures that tree in
+    the same call (earlier tree, this one, this one, earlier tree)."""
+    llm = LLM(path, max_batch=MAX_BATCH, max_seq=MAX_SEQ, device=DEVICE)
+    tok, pos, gen = _step_inputs(seed)
+    for r in range(2):
+        decode_split(llm, tok, pos, 256, "TinyLlama Q2_K mix decode step, 16 "
+                     f"slots, span 256 (round {r})", gen)
+    prefill_chunk(llm, _chunk_tokens(seed), 0, "TinyLlama Q2_K mix")
+
+
 def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
                      rep: Report) -> dict:
     """Q2_K and Q3_K: K12/K13 against their plain versions (the 2-layer
@@ -1654,7 +1748,10 @@ def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
                              f"{sorted(layer)}")
     with phase("K12/K13/K15 vs plain, K1 on the mix's wv"):
         compare_k1("mix wv", layer["wv"], gen, rep)
+        head2 = llms["q2_k"].params["output"]
         compare_lowbit(_lowbit_cases("mmq_q2_k", llms["q2_k"].params)
+                       + [("mmq_q2_k", "head[:1000] ",
+                           head2.take_rows(torch.arange(1000)))]
                        + [("mmq_q2_k", f"mix {key} ", layer[key])
                           for key in ("wq", "wk")]
                        + _lowbit_cases("mmq_q3_k", llms["q3_k"].params),
@@ -1673,6 +1770,9 @@ def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
                      gen_step)
         launches["rms_norm"] = rms_norm_shadow(llms["mix"], tok, pos, 256,
                                                gen_step)
+    with phase("Q2_K mix prefill chunk"):
+        prefill_chunk(llms["mix"], _chunk_tokens(seed), 0,
+                      "TinyLlama Q2_K mix")
     with phase("reference checks of the mix, Q2_K and Q3_K (2 layers)"):
         for key, llm in llms.items():
             log(f"-- {key}")

@@ -1,6 +1,7 @@
-// Shared tile machinery of the MMQ kernels (K1 mmq_q4_k.cu, K2
-// mmq_q6_k.cu, K8 mmq_q5_k.cu, K12 mmq_q2_k.cu, K13 mmq_q3_k.cu, and the
-// block32.cuh tile of K10, K11 and K14).
+// Shared tile machinery of the SIMT MMQ kernels (K1 mmq_q4_k.cu, K2
+// mmq_q6_k.cu and K12 mmq_q2_k.cu under "high", K8 mmq_q5_k.cu, K13
+// mmq_q3_k.cu, and the block32.cuh tile of K10, K11 and K14), and the
+// split-K sum every split-K kernel launches (add_splits).
 //
 // out (N, M) f32 = x (N, K) . W (M, K)^T with W dequantized from GGUF
 // blocks. A block of 256 threads owns BM = 64 output rows m and BN

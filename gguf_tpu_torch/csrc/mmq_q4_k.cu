@@ -41,8 +41,6 @@
 // within its 1e-5 bound and keeps the SIMT tile kquant::mmq_tile, which K8
 // (mmq_q5_k.cu) also runs.
 
-#include <algorithm>
-
 #include "mmq_tc.cuh"
 
 namespace {
@@ -156,30 +154,7 @@ mmq_q4_k_tc(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUte
   wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
-  float* dst = gridDim.z > 1 ? part + static_cast<size_t>(blockIdx.z) * N * M : out;
-#pragma unroll
-  for (int jn = 0; jn < BN / 8; ++jn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + row + 8 * (e >> 1), n = n0 + 8 * jn + 2 * t + (e & 1);
-      if (m < M && n < N) dst[static_cast<size_t>(n) * M + m] = acc[4 * jn + e];
-    }
-}
-
-// xb (N, K) bf16 = bf16(x), or bf16(act(gate) * up) in f32 with glu
-template <bool XBF16>
-__global__ void __launch_bounds__(256)
-to_bf16(const void* __restrict__ x, __nv_bfloat16* __restrict__ xb, int N, int K, int ldx,
-        int glu) {
-  const size_t total = static_cast<size_t>(N) * K;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t e = (i / K) * ldx + i % K;
-    const float v = glu ? mmq::glu_act(mmq::load_x<XBF16>(x, e), glu) *
-                              mmq::load_x<XBF16>(x, e + K)
-                        : mmq::load_x<XBF16>(x, e);
-    xb[i] = __float2bfloat16_rn(v);
-  }
+  store_acc<BN>(acc, out, part, M, N, m0 + row, n0 + 2 * t);
 }
 
 template <int BN, int WG>
@@ -243,13 +218,8 @@ extern "C" int mmq_q4_k_launch(const void* w, const void* x, void* out, void* pa
   if (splits < 1 || chunks_per_split < 1 || (splits - 1) * chunks_per_split >= chunks ||
       splits * chunks_per_split < chunks)
     return static_cast<int>(cudaErrorInvalidValue);
+  launch_to_bf16(x, xb, N, K, ldx, x_bf16, glu, st);
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
-  if (xb != x) {
-    const size_t total = static_cast<size_t>(N) * K;
-    const unsigned blocks = static_cast<unsigned>(std::min<size_t>((total + 255) / 256, 4096));
-    if (x_bf16) to_bf16<true><<<blocks, 256, 0, st>>>(x, xbp, N, K, ldx, glu);
-    else to_bf16<false><<<blocks, 256, 0, st>>>(x, xbp, N, K, ldx, glu);
-  }
   auto* pp = static_cast<float*>(part);
   cudaError_t err;
   const int per = chunks_per_split;   // tiles as ops/mmq_q4_k.py:tc_tile

@@ -1,6 +1,8 @@
 // The tensor-core MMQ tiles of K1 (mmq_q4_k.cu, "fast") and K7
 // (mmq_i8.cu) over Q4_K / Q5_K superblocks as stored in GGUF
-// (kquant.cuh): TMA copies of the weight bytes into a ring of shared-memory
+// (kquant.cuh), and of K2 (mmq_q6_k.cu) and K12 (mmq_q2_k.cu) under "fast"
+// over the per-field arrays of Q6_K / Q2_K (KH-element chunks, their notes
+// say how): TMA copies of the weight bytes into a ring of shared-memory
 // stages, each completing on its stage's mbarrier, the A fragments decoded
 // from those bytes in registers, and the bf16 wgmma instructions with A
 // from registers.
@@ -27,12 +29,15 @@
 
 #include <cuda.h>
 
+#include <algorithm>
+
 #include "kquant.cuh"
 
 namespace tc {
 
 constexpr int BM = 64;         // weight rows per warpgroup
 constexpr int KC = 64;         // K elements per nibble run
+constexpr int KH = 2 * KC;     // K elements per chunk of K2 and K12: half a superblock
 constexpr int NTHREADS = 128;  // four warps: one warpgroup
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -153,6 +158,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+// ------------------------------------------------- the bf16 activations ---
+
+// xb (N, K) bf16 = bf16(x), or bf16(act(gate) * up) in f32 with glu
+template <bool XBF16>
+__global__ void __launch_bounds__(256)
+to_bf16(const void* __restrict__ x, __nv_bfloat16* __restrict__ xb, int N, int K, int ldx,
+        int glu) {
+  const size_t total = static_cast<size_t>(N) * K;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t e = (i / K) * ldx + i % K;
+    const float v = glu ? mmq::glu_act(mmq::load_x<XBF16>(x, e), glu) *
+                              mmq::load_x<XBF16>(x, e + K)
+                        : mmq::load_x<XBF16>(x, e);
+    xb[i] = __float2bfloat16_rn(v);
+  }
+}
+
+// the tiles' (N, K) bf16 operand: x itself when the caller passed it
+// (xb == x), else one pass writes it to the scratch xb
+inline void launch_to_bf16(const void* x, void* xb, int N, int K, int ldx, int x_bf16, int glu,
+                           cudaStream_t st) {
+  if (xb == x) return;
+  const size_t total = static_cast<size_t>(N) * K;
+  const unsigned blocks = static_cast<unsigned>(std::min<size_t>((total + 255) / 256, 4096));
+  auto* xbp = static_cast<__nv_bfloat16*>(xb);
+  if (x_bf16) to_bf16<true><<<blocks, 256, 0, st>>>(x, xbp, N, K, ldx, glu);
+  else to_bf16<false><<<blocks, 256, 0, st>>>(x, xbp, N, K, ldx, glu);
+}
+
 // ----------------------------------------------------------------- wgmma ---
 
 // Shared-memory matrix descriptor of a K-major operand stored as TMA's
@@ -161,6 +196,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | 1ull << 16 |
          static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+// descriptor of k16 step k (0..7) of a KH-element chunk's x tile: two TMA
+// boxes of (BN x 64) bf16, `xbox` bytes each, 128-byte swizzle
+__device__ __forceinline__ uint64_t x_desc_kh(const uint8_t* st, int xbox, int k) {
+  return smem_desc_sw128(st + (k >> 2) * xbox) + 2 * (k & 3);
+}
+
+// a warpgroup's accumulator tile into split z's partial tile, or into out
+// when K is not split; this lane holds rows m, m + 8 and columns
+// n + 8 jn + {0, 1}
+template <int BN>
+__device__ __forceinline__ void store_acc(const float (&acc)[BN / 2], float* out, float* part,
+                                          int M, int N, int m, int n) {
+  float* dst = gridDim.z > 1 ? part + static_cast<size_t>(blockIdx.z) * N * M : out;
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int mm = m + 8 * (e >> 1), nn = n + 8 * jn + (e & 1);
+      if (mm < M && nn < N) dst[static_cast<size_t>(nn) * M + mm] = acc[4 * jn + e];
+    }
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -20,7 +20,9 @@ any width and in both precisions, then takes the same arm; there is no
 integer contract for Q2_K in the reference and no fp16 rounding of the
 sums. Counterpart of `gguf_tpu/ops/mmq_q2_k.py:mmq_q2_k` (Pallas
 `_kernel`; its plane order and activation permutes are TPU glue); the CUDA
-source is `gguf_tpu_torch/csrc/mmq_q2_k.cu`.
+source is `gguf_tpu_torch/csrc/mmq_q2_k.cu`. "fast" runs its bf16
+tensor-core tile, whose tile width decides the arm (one warpgroup, n <=
+64: split; two, n > 64: folded, `tc_tile`); "high" runs its SIMT f32 tile.
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches K12 or raises. `mmq_q2_k.launches` counts K12 launches.
@@ -35,12 +37,13 @@ import torch
 from ..quant.layouts import QuantWeight, q2_k_parts
 from . import build
 from .activation import fake_quant_2d
-from .mmq_q4_k import check_operands, check_precision, matmul_plain
+from .mmq_q4_k import check_operands, check_precision, launch_tc, matmul_plain
 from .mmq_q8_0 import launch_split_k
 
 SPLIT_MAX_N = 64      # the reference's INK_GLUE_MAX_N on n_pad
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"mmq_q2_k_launch": [_VP] * 7 + [_I] * 8 + [_VP]}
+_SIG = {"mmq_q2_k_launch": [_VP] * 7 + [_I] * 8 + [_VP],
+        "mmq_q2_k_tc_launch": [_VP] * 8 + [_I] * 6 + [_VP]}
 
 
 def split_arm(n: int) -> bool:
@@ -81,10 +84,13 @@ def mmq_q2_k(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
     if b.device.type != "cuda":
         raise ValueError(f"mmq_q2_k runs on cpu or cuda, not {b.device}")
     f = w.fields
-    out = launch_split_k(
-        _lib().mmq_q2_k_launch, w, b,
-        [(f["sc"], 1), (f["qs"], 8), (f["d"], 2), (f["dmin"], 2)],
-        (int(split_arm(b.shape[0])),), precision, "mmq_q2_k")
+    fields = [(f["sc"], 8), (f["qs"], 16), (f["d"], 2), (f["dmin"], 2)]
+    if precision == "fast":
+        out = launch_tc(_lib().mmq_q2_k_tc_launch, w, b, fields, "mmq_q2_k")
+    else:
+        out = launch_split_k(_lib().mmq_q2_k_launch, w, b, fields,
+                             (int(split_arm(b.shape[0])),), precision,
+                             "mmq_q2_k")
     if b.shape[0]:
         mmq_q2_k.launches += 1
     return out

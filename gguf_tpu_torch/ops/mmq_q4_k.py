@@ -10,7 +10,8 @@ widths, `_kernel_i8` under act_quant); the CUDA sources are
 runs on bf16 tensor cores (wgmma) and K7 on int8 ones (mma.sync), both
 over the TMA-fed tile of `csrc/mmq_tc.cuh`; K1 "high" runs the SIMT f32
 tile of `csrc/kquant.cuh`, which K8 shares. Their wrappers pick the split
-of K (`split_k`) and allocate its scratch.
+of K (`split_k`) and allocate its scratch; `launch_tc` does the same for
+the "fast" tensor-core tiles of K2 (`mmq_q6_k`) and K12 (`mmq_q2_k`).
 
 `precision="fast"` rounds both operands to bf16 before the f32-accumulated
 product (the TPU's single-pass bf16 MXU contract); "high" keeps f32.
@@ -48,6 +49,7 @@ _SIG_I8 = {"mmq_i8_launch": [_VP] * 6 + [_I] * 6 + [_VP]}
 KT = 64             # K elements per step of the SIMT tiles (mmq_common.cuh)
                     # and per chunk of K1's tensor-core tile (mmq_tc.cuh)
 I8_KT = 128         # K elements per chunk of K7 (csrc/mmq_i8.cu)
+KH = 128            # per chunk of K2's and K12's tensor-core tiles
 BM = 64             # output rows per block
 MAX_SPLITS = 8
 
@@ -67,14 +69,15 @@ def tc_tile(n: int) -> tuple:
 
 def split_k(m: int, n: int, k: int, sms: int, tile: tuple | None = None,
             per_sm: int = 2, kt: int = KT) -> tuple:
-    """How the split-K kernels (K1 "fast", K7, K10-K14) cut K across the
-    grid's z axis: (splits, K steps of `kt` per split), for a tile of (rows,
-    width) = `tile`, by default (BM, 8, 16 or 64 from n). Enough blocks
-    for `per_sm` per SM when M and N give too few (decode widths at M =
-    2048: 32 blocks), at most MAX_SPLITS; the partial sums are then added
-    in split order by a second launch, so the result does not depend on
-    the schedule. K1 "fast" asks for 4 per SM at decode widths, where its
-    blocks are small and hide latency with more of them."""
+    """How the split-K kernels (K1, K2 and K12 "fast", K7, K10-K14) cut K
+    across the grid's z axis: (splits, K steps of `kt` per split), for a
+    tile of (rows, width) = `tile`, by default (BM, 8, 16 or 64 from n).
+    Enough blocks for `per_sm` per SM when M and N give too few (decode
+    widths at M = 2048: 32 blocks), at most MAX_SPLITS; the partial sums
+    are then added in split order by a second launch, so the result does
+    not depend on the schedule. K1 "fast" asks for 4 per SM at decode
+    widths, where its blocks are small and hide latency with more of
+    them."""
     bm, bn = tile or (BM, 8 if n <= 8 else 16 if n <= 16 else 64)
     steps = -(-k // kt)
     blocks = -(-m // bm) * -(-n // bn)
@@ -90,6 +93,41 @@ def split_scratch(splits: int, n: int, m: int,
     if splits == 1:
         return out
     return torch.empty((splits, n, m), dtype=torch.float32, device=out.device)
+
+
+def tc_plan(m: int, n: int, k: int, sms: int) -> tuple:
+    """(splits, chunks per split) of K2's and K12's "fast" tensor-core tiles
+    (KH-element chunks, the tile `tc_tile(n)`), 2 blocks per SM asked at
+    every width: the 32000-row head (500 row blocks) is not split, where 4
+    per SM would split it in two and add a partial-sum pass."""
+    return split_k(m, n, k, sms, tc_tile(n), 2, KH)
+
+
+def launch_tc(fn, w: QuantWeight, b: torch.Tensor, fields: list,
+              what: str) -> torch.Tensor:
+    """Launch K2's or K12's "fast" tensor-core tile on validated CUDA
+    operands: `fn(*fields, x, xb, out, part, M, N, K, x_bf16, splits,
+    chunks_per_split, stream)`, `fields` listing (tensor, the byte alignment
+    its loads need: 16 for a TMA box). The kernel takes a bf16 (N, K)
+    operand: b itself, or scratch it fills first."""
+    (m, k), n = w.shape, b.shape[0]
+    b = b.contiguous()
+    if any(not f.is_contiguous() or f.data_ptr() % a for f, a in fields):
+        raise ValueError(f"{what}: weight fields must be contiguous and "
+                         "aligned")
+    out = torch.empty((n, m), dtype=torch.float32, device=b.device)
+    if n == 0:
+        return out
+    splits, per = tc_plan(m, n, k, sm_count(b.device.index or 0))
+    direct = b.dtype == torch.bfloat16 and b.data_ptr() % 16 == 0
+    xb = b if direct else torch.empty((n, k), dtype=torch.bfloat16,
+                                      device=b.device)
+    err = fn(*(build.ptr(f) for f, _ in fields), build.ptr(b), build.ptr(xb),
+             build.ptr(out), build.ptr(split_scratch(splits, n, m, out)),
+             m, n, k, int(b.dtype == torch.bfloat16), splits, per,
+             build.stream_ptr())
+    build.check(err, what)
+    return out
 
 
 def check_operands(w: QuantWeight, b: torch.Tensor, fmt: str, glu) -> int:

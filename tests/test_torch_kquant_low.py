@@ -19,6 +19,7 @@ from gguf_tpu.utils import allclose_rel, max_rel_err
 from gguf_tpu_torch import compat
 from gguf_tpu_torch.ops import MMQ, mmq_q2_k, mmq_q3_k
 from gguf_tpu_torch.ops.mmq_q2_k import mmq_q2_k_plain, split_arm
+from gguf_tpu_torch.ops.mmq_q4_k import tc_tile
 from gguf_tpu_torch.quant import QUANTIZERS, QuantWeight, concat_m
 
 FORMATS = ("q2_k", "q3_k")
@@ -143,6 +144,14 @@ def test_q2_k_arm_follows_the_padded_width():
     one above: n = 64 and 57 split, 65 folded."""
     assert [split_arm(n) for n in (1, 8, 57, 64, 65, 96, 512)] == \
         [True, True, True, True, False, False, False]
+
+
+def test_q2_k_arm_is_the_tensor_core_tiles_arm():
+    """K12 "fast" takes its arm from its tensor-core tile (csrc/mmq_q2_k.cu:
+    the split arm on the one-warpgroup tiles, folded on the two-warpgroup
+    one): at every width from 1 to 512 that is the reference's arm."""
+    for n in range(1, 513):
+        assert split_arm(n) == (tc_tile(n)[0] == 64), n
 
 
 @pytest.mark.parametrize("n", [4, 96])

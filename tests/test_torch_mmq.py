@@ -2,6 +2,9 @@
 and K2) held against the JAX package's Pallas MMQ kernels (interpret mode on the CPU),
 and the port's dequantization held bit-equal to the GGUF codecs."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -14,9 +17,9 @@ from gguf_tpu.ops import mmq_q6_k as jax_mmq_q6_k
 from gguf_tpu.quant import (dequantize_q4_k, dequantize_q5_k, dequantize_q6_k,
                             quantize_q4_k, quantize_q5_k, quantize_q6_k)
 from gguf_tpu.quant.layouts import to_soa
-from gguf_tpu_torch.ops import MMQ, mmq_q4_k, mmq_q5_k, mmq_q6_k
-from gguf_tpu_torch.ops.mmq_q4_k import (dequantize_q4_k_plain, split_k,
-                                         tc_tile)
+from gguf_tpu_torch.ops import MMQ, build, mmq_q4_k, mmq_q5_k, mmq_q6_k
+from gguf_tpu_torch.ops.mmq_q4_k import (KH, dequantize_q4_k_plain, split_k,
+                                         tc_plan, tc_tile)
 from gguf_tpu_torch.ops.mmq_q5_k import dequantize_q5_k_plain
 from gguf_tpu_torch.ops.mmq_q6_k import dequantize_q6_k_plain
 from gguf_tpu_torch.quant import QuantWeight, concat_m
@@ -155,9 +158,48 @@ def test_cpu_tensors_never_count_kernel_launches():
     (1, (64, 8)), (8, (64, 8)), (9, (64, 16)), (16, (64, 16)),
     (17, (64, 64)), (64, (64, 64)), (65, (128, 128)), (512, (128, 128))])
 def test_tensor_core_tile_widths(n, tile):
-    """K1 "fast" picks its tile from n alone (csrc/mmq_q4_k.cu dispatches
-    the same widths): one warpgroup of 64 rows up to n = 64, two above."""
+    """K1, K2 and K12 "fast" pick their tile from n alone: one warpgroup of
+    64 rows up to n = 64, two above."""
     assert tc_tile(n) == tile
+
+
+_DISPATCH = re.compile(
+    r"(?:if \(N <= (\d+)\)|else)\s+err = [\w:]+<(\d+), (\d+)>\(")
+
+
+@pytest.mark.parametrize("source", ["mmq_q4_k.cu", "mmq_q6_k.cu",
+                                    "mmq_q2_k.cu"])
+def test_cuda_dispatch_matches_tc_tile(source):
+    """The tensor-core launch of K1, K2 and K12 dispatches the tile that
+    `tc_tile` (and so the wrappers' split plan) assumes, at every width
+    from 1 to 512: (activation rows, warpgroups of 64 weight rows)."""
+    with open(os.path.join(build.CSRC_DIR, source)) as f:
+        arms = [(int(lim) if lim else None, int(bn), int(wg))
+                for lim, bn, wg in _DISPATCH.findall(f.read())]
+    assert [a[0] for a in arms] == [8, 16, 64, None], arms
+    for n in range(1, 513):
+        bn, wg = next((bn, wg) for lim, bn, wg in arms
+                      if lim is None or n <= lim)
+        assert (64 * wg, bn) == tc_tile(n), (source, n)
+
+
+# the tensor-core tiles of K2 and K12 "fast": the LM heads (TinyLlama and
+# Llama-2-7B, Q6_K or Q2_K) and the Q2_K mix's wk, wq and gate_up at a
+# decode and a prefill width
+_KH_SHAPES = [(32000, 16, 2048, (1, 16)), (32000, 512, 2048, (1, 16)),
+              (32000, 16, 4096, (1, 32)), (32000, 512, 4096, (1, 32)),
+              (256, 16, 2048, (8, 2)), (256, 512, 2048, (8, 2)),
+              (2048, 16, 2048, (8, 2)), (2048, 512, 2048, (4, 4)),
+              (11264, 16, 2048, (2, 8)), (11264, 512, 2048, (1, 16))]
+
+
+@pytest.mark.parametrize("m,n,k,want", _KH_SHAPES)
+def test_tc_plan_of_k2_and_k12(m, n, k, want):
+    """K2's and K12's wrappers split K as split_k does for their tile and
+    128-element chunks at 2 blocks per SM: the 32000-row heads stay whole
+    (500 row blocks fill 132 SMs), the small Q2_K weights are cut."""
+    assert tc_plan(m, n, k, 132) == want
+    assert want == split_k(m, n, k, 132, tc_tile(n), 2, KH)
 
 
 @pytest.mark.parametrize("m,n,k,tile,per_sm,kt,want", [
@@ -172,10 +214,12 @@ def test_tensor_core_tile_widths(n, tile):
     # K7: 128-element chunks
     (11264, 16, 2048, None, 2, 128, (2, 8)),
     (256, 4, 2048, None, 2, 128, (8, 2)),
+    # K2 and K12 "fast": 128-element chunks, 2 blocks per SM
+    *[(m, n, k, tc_tile(n), 2, KH, want) for m, n, k, want in _KH_SHAPES],
 ])
 def test_split_k_of_the_tensor_core_tiles(m, n, k, tile, per_sm, kt, want):
-    """The wrappers' split of K for K1 "fast" and K7 on 132 SMs: every
-    split holds at least one chunk, as the launch functions check."""
+    """The wrappers' split of K for K1 "fast", K7, K2 and K12 on 132 SMs:
+    every split holds at least one chunk, as the launch functions check."""
     splits, per = split_k(m, n, k, 132, tile, per_sm, kt)
     assert (splits, per) == want
     chunks = k // kt
