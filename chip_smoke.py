@@ -33,9 +33,11 @@ Q5_K_M under llama.cpp's Q8_1 numerics, `MMOpts(act_quant=True,
 precision="high")` (kernels K2-K8):
 4. holds K5 (Q8_1 codes) and K6 (fake-quant) bit-equal to their plain
    versions, K7 (the integer MMQ contract) within 1e-5 at every width it
-   is built for (n = 1, 4, 8, 16, the 256-row wk among the weights), K8 (Q5_K MMQ) within 1e-3 of max|ref| under "fast" and
-   1e-5 under "high", on bf16 activations and on K6's f32 output, and K2
-   on K6's output under "high" within 1e-5;
+   is built for (n = 1, 4, 8, 16, the 256-row wk among the weights), K8
+   (Q5_K MMQ) within 1e-3 of max|ref| under "fast" (tensor cores, at the
+   widths of 1., on every projection and on wqkv's first 256 and 1000
+   rows) and 1e-5 under "high" (n = 1, 16, 512), on bf16 activations and
+   on K6's f32 output, and K2 on K6's output under "high" within 1e-5;
 5. serves the same 24 prompts and requires launches of K2-K8 on that run;
 6. checks its logits as in 3: through 2 layers within 1e-2 with bf16
    activations and within 3e-2 under act_quant (where one code moved by
@@ -46,7 +48,13 @@ precision="high")` (kernels K2-K8):
    the CPU port's output within 1e-5;
 7. scores 2,048 seeded token ids with `perplexity_of_gguf(act_quant=True,
    window=512)` and holds the card's mean NLL over one 256-token window,
-   2 layers, within 1e-2 nats of the CPU run's.
+   2 layers, within 1e-2 nats of the CPU run's;
+7a. serves the 24 prompts through the same checkpoint with bf16
+   activations (`MMOpts()`: K8 "fast" on tensor cores, K2-K4), requiring
+   launches of K8, K2, K3 and K4 and none of the other MMQ kernels, then
+   splits a 16-slot decode step at span 256 (88 K8 launches per step
+   required) and times a 512-token prefill chunk; 6. holds the 2-layer
+   logits of this route against the CPU run (1e-2).
 
 The 32-element-block formats (kernels K10 `mmq_q8_0` and K11
 `mmq_legacy`, with K3, K4 and, under act_quant, K6):
@@ -85,9 +93,11 @@ b. serves the 24 prompts through the 22-layer Q2_K mix, requiring
 c. checks 2 layers of the mix and of the Q2_K and Q3_K files against the
    CPU run (logits within 1e-2), with the act_quant projection check of
    6 for Q2_K and Q3_K (routes K6+K12, K6+K13);
-d. after the 7B phases, K14 as in a. on the IQ4_NL and IQ4_XS files,
-   the 24 prompts served through the IQ4_XS one (K14 launched), and the
-   checks of c. for both (projection check for IQ4_XS: K6+K14).
+d. after the 7B phases, K14 as K12 in a. (tensor cores under "fast") on
+   every projection and the head of the IQ4_NL and IQ4_XS files and the
+   heads' first 1000 rows, the 24 prompts served through the IQ4_XS one
+   (K14 launched), and the checks of c. for both (projection check for
+   IQ4_XS: K6+K14).
 
 Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 (kernels K1-K4 and K9, flash-decoding):
@@ -114,10 +124,12 @@ Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 
 `--profile` instead splits a 16-slot decode step of the Q5_K_M
 checkpoint with bf16 activations and under act_quant (host clock and
-`torch.profiler`), and checks nothing. `--mix-step` instead splits the
-Q2_K mix's decode step (twice) and times its 512-token prefill chunk, as
-b. does, and checks nothing; copied beside an earlier tree of the port it
-measures that tree, so two trees compare in one call.
+`torch.profiler`), and checks nothing. `--mix-step [q2k_mix|q5km|
+iq4_xs_2l]` instead splits that checkpoint's decode step with bf16
+activations (twice; the Q2_K mix by default) and times its 512-token
+prefill chunk, as b. does, and checks nothing; copied beside an earlier
+tree of the port it measures that tree, so two trees compare in one
+call.
 
 Prints the card's name and power limit, a per-shape table, seconds per
 phase and in total, one JSON line {"kernels": [...]} (per kernel its
@@ -304,6 +316,8 @@ Q4_0_KERNELS = ("mmq_legacy", "kv_cache_insert", "decode_attention")
 Q2K_MIX_KERNELS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q6_k",
                    "kv_cache_insert", "decode_attention")
 IQ4_XS_KERNELS = ("mmq_iq4", "kv_cache_insert", "decode_attention")
+Q5KM_BF16_KERNELS = ("mmq_q5_k", "mmq_q6_k", "kv_cache_insert",
+                     "decode_attention")
 # every MMQ kernel: a serving path with bf16 activations must launch none
 # but those of its own formats
 MMQ_KERNELS = ("mmq_q4_k", "mmq_q6_k", "mmq_i8", "mmq_q5_k", "mmq_q8_0",
@@ -327,6 +341,13 @@ HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
             "mmq_q3_k": "gate_up 11264x2048 n=16 fast",
             "mmq_iq4": "iq4_xs gate_up 11264x2048 n=16 fast",
             "rms_norm": "n=16 d=2048 bf16"}
+# the prefill-width shape of each tensor-core MMQ kernel, timed beside its
+# bound and its library call as the headline is
+WIDE = {"mmq_q4_k": "gate_up 11264x2048 n=512",
+        "mmq_q6_k": "head 32000x2048 n=512",
+        "mmq_q5_k": "gate_up 11264x2048 n=512 fast",
+        "mmq_q2_k": "gate_up 11264x2048 n=512 fast",
+        "mmq_iq4": "iq4_xs gate_up 11264x2048 n=512 fast"}
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): a kernel's bound
 # is the larger of its bytes over HBM_BPS and its operations over the peak
 # of their type
@@ -412,39 +433,44 @@ def live_rows(pos: torch.Tensor, span: int) -> int:
 
 class Report:
     """Per-kernel worst error; the headline shape's times, bound and
-    library yardstick."""
+    library yardstick, and those of the WIDE shape."""
 
     def __init__(self):
         self.err = {k: 0.0 for k in KERNELS}
         self.times = {}
         self.bound = {}
         self.library = {}
+        self.wide = {}
 
     def add(self, kernel, shape, err, rel, tol, fn=None, plain_fn=None,
             work=None, library=None):
         """Record one check; time fn (the kernel) and plain_fn with CUDA
-        events, and at the headline shape also by profiler device time,
-        with the bound from `work` = (bytes, operations, their type) and
-        the time of the call that `library()` returns, one PyTorch call
+        events, and at the headline and WIDE shapes also by profiler device
+        time, with the bound from `work` = (bytes, operations, their type)
+        and the time of the call that `library()` returns, one PyTorch call
         computing the same function (or None)."""
         ok = rel <= tol
         times = "not timed"
         if ok and fn is not None:
             ms, pms = cuda_ms(fn), cuda_ms(plain_fn, iters=5)
             times = f"{ms:.4f} ms vs plain {pms:.4f} ms"
-            if shape == HEADLINE[kernel]:
+            if shape in (HEADLINE[kernel], WIDE.get(kernel)):
                 dms, pdms = device_ms(fn), device_ms(plain_fn)
-                self.times[kernel] = (ms, pms, dms, pdms)
-                self.bound[kernel] = bound_ms(*work)
-                self.library[kernel] = None if library is None else cuda_ms(
-                    library())
+                bound = bound_ms(*work)
+                lib_ms = None if library is None else cuda_ms(library())
+                if shape == HEADLINE[kernel]:
+                    self.times[kernel] = (ms, pms, dms, pdms)
+                    self.bound[kernel], self.library[kernel] = bound, lib_ms
+                else:
+                    self.wide[kernel] = {
+                        "shape": shape, "ms": ms, "device_ms": dms,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": lib_ms}
                 dev = ["not measured" if v is None else f"{v:.4f} ms"
                        for v in (dms, pdms)]
-                lib = ("none" if library is None
-                       else f"{self.library[kernel]:.4f} ms")
+                lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
                 times += (f" (device {dev[0]} vs plain {dev[1]}; bound "
-                          f"{self.bound[kernel][0]:.4f} ms by "
-                          f"{self.bound[kernel][1]}; library {lib})")
+                          f"{bound[0]:.4f} ms by {bound[1]}; library {lib})")
         log(f"  {kernel:19s} {shape:38s} max|d|={err:.3e} rel={rel:.2e} "
             f"(tol {tol:g}) {times}{'' if ok else '  FAILED'}")
         if not ok:
@@ -924,29 +950,38 @@ def compare_i8(layer5: dict, layer4: dict, gen: torch.Generator,
 
 
 def compare_q5_k(layer5: dict, gen: torch.Generator, rep: Report) -> None:
-    """K8 on the four Q5_K_M projections, "fast" and "high": bf16
-    activations, and K6's f32 output as the act_quant path feeds it."""
-    for key in ("wqkv", "wo", "gate_up", "down"):
-        w = layer5[key]
-        cases = [(n, "bf16", torch.randn((n, w.shape[1]), generator=gen,
-                                         device=DEVICE).bfloat16())
-                 for n in MMQ_NS]
-        cases += [(n, "q8_1 f32", fake_quantize_q8_1(
-            torch.randn((n, w.shape[1]), generator=gen, device=DEVICE)))
-            for n in FQ_NS]
-        for n, dt, x in cases:
-            for prec in ("fast", "high"):
-                got = mmq_q5_k(w, x, precision=prec)
-                ref = mmq_q5_k_plain(w, x, precision=prec)
-                err, rel = rel_err(got, ref)
-                shape = f"{key} {w.shape[0]}x{w.shape[1]} n={n} {prec}"
-                rep.add("mmq_q5_k", shape if dt == "bf16" else f"{shape} {dt}",
-                        err, rel, TOL_MMQ if prec == "fast" else TOL_HIGH,
-                        lambda: mmq_q5_k(w, x, precision=prec),
-                        lambda: mmq_q5_k_plain(w, x, precision=prec),
-                        work=_mmq_work(w, x, got,
-                                       "bf16" if prec == "fast" else "f32"),
-                        library=lambda: matmul_library(w, x))
+    """K8 on the four Q5_K_M projections: "fast" (the tensor-core tile) at
+    every TC_NS width, "high" (the SIMT tile) at MMQ_NS, on bf16
+    activations, and both on K6's f32 output as the act_quant path feeds
+    it; "fast" also on wqkv's first 256 rows (M below one row block) and
+    first 1000 (M not a multiple of it), as K1 is held."""
+    wqkv = layer5["wqkv"]
+    weights = [(key, layer5[key], True)
+               for key in ("wqkv", "wo", "gate_up", "down")]
+    weights += [(f"wqkv[:{rows}]", wqkv.take_rows(torch.arange(rows)), False)
+                for rows in (256, 1000)]
+    for key, w, whole in weights:
+        def bf16(n):
+            return torch.randn((n, w.shape[1]), generator=gen,
+                               device=DEVICE).bfloat16()
+
+        cases = [(n, "bf16", "fast", bf16(n)) for n in TC_NS]
+        if whole:
+            cases += [(n, "bf16", "high", bf16(n)) for n in MMQ_NS]
+            cases += [(n, "q8_1 f32", prec, fake_quantize_q8_1(
+                torch.randn((n, w.shape[1]), generator=gen, device=DEVICE)))
+                for n in FQ_NS for prec in ("fast", "high")]
+        for n, dt, prec, x in cases:
+            got = mmq_q5_k(w, x, precision=prec)
+            err, rel = rel_err(got, mmq_q5_k_plain(w, x, precision=prec))
+            shape = f"{key} {w.shape[0]}x{w.shape[1]} n={n} {prec}"
+            rep.add("mmq_q5_k", shape if dt == "bf16" else f"{shape} {dt}",
+                    err, rel, TOL_MMQ if prec == "fast" else TOL_HIGH,
+                    lambda: mmq_q5_k(w, x, precision=prec),
+                    lambda: mmq_q5_k_plain(w, x, precision=prec),
+                    work=_mmq_work(w, x, got,
+                                   "bf16" if prec == "fast" else "f32"),
+                    library=lambda: matmul_library(w, x))
 
 
 def compare_head_act_quant(params5: dict, gen: torch.Generator,
@@ -1058,14 +1093,14 @@ def _terms_max(w: QuantWeight, x: torch.Tensor) -> float:
 def compare_lowbit(cases: list, gen: torch.Generator, rep: Report) -> None:
     """K12, K13 and K14 against their plain versions, `cases` listing
     (kernel, label, weight): bf16 activations at BLOCK32_NS (both sides of
-    the n_pad <= 64 arm), for K12 at TC_NS (both sides of every width of
-    its tensor-core tile, whose arm follows its width), "fast" (TOL_MMQ)
-    and "high" (TOL_HIGH), timed; and K6's f32 output, as the act_quant
-    path feeds them, at n = 16 and 512 in both precisions."""
+    the n_pad <= 64 arm), for K12 and K14 at TC_NS (both sides of every
+    width of their tensor-core tiles; K12's arm follows its width), "fast"
+    (TOL_MMQ) and "high" (TOL_HIGH), timed; and K6's f32 output, as the
+    act_quant path feeds them, at n = 16 and 512 in both precisions."""
     for kernel, label, w in cases:
         fn, plain = LOWBIT[kernel]
         shape = f"{label}{w.shape[0]}x{w.shape[1]}"
-        for n in TC_NS if kernel == "mmq_q2_k" else BLOCK32_NS:
+        for n in TC_NS if kernel in ("mmq_q2_k", "mmq_iq4") else BLOCK32_NS:
             x = torch.randn((n, w.shape[1]), generator=gen,
                             device=DEVICE).bfloat16()
             for prec in ("fast", "high"):
@@ -1380,11 +1415,12 @@ def hbm_read_gbs() -> float:
 
 
 def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
-                 label: str, gen: torch.Generator) -> list:
+                 label: str, gen: torch.Generator) -> tuple:
     """One 16-slot decode step's split at `pos` and `span`: the host clock
     over 8 steps ending in a sync (and the kernel wrappers' launches per
     step), then `torch.profiler` over 4 steps (device busy time, idle
-    share, the top kernels). Returns the profiler's CUDA events."""
+    share, the top kernels). Returns the profiler's CUDA events and the
+    wrappers' launches per step."""
     sampler = SamplerConfig()
     llm._decode(tok, pos, sampler, 2, span, gen)
     torch.cuda.synchronize()
@@ -1395,8 +1431,8 @@ def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
     issue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 8 * 1e3
-    log(f"{label}: wrapper launches per step " + json.dumps(
-        {k: f.launches / 8 for k, f in WRAPPERS.items() if f.launches}))
+    per_step = {k: f.launches / 8 for k, f in WRAPPERS.items() if f.launches}
+    log(f"{label}: wrapper launches per step " + json.dumps(per_step))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         llm._decode(tok, pos, sampler, 4, span, gen)
@@ -1413,19 +1449,19 @@ def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
         log(f"  {e.self_device_time_total / 4 / 1e3:8.3f} ms/step "
             f"{e.count / 4:6.1f}/step {e.key[:70]}")
     log_groups(kern, 4, "/step")
-    return kern
+    return kern, per_step
 
 
 # kernel-name pieces by which device time is summed per source
-KERNEL_GROUPS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q6_k", "add_splits",
-                 "to_bf16")
+KERNEL_GROUPS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q5_k", "mmq_q6_k",
+                 "mmq_iq4", "add_splits", "to_bf16")
 
 
 def log_groups(kern: list, runs: int, unit: str) -> None:
     """Device time and launches of the profiler's CUDA events `kern` per
     run, summed over the kernels whose name holds each of KERNEL_GROUPS
     (a kernel's template instances and tiles together; add_splits is the
-    split-K sum of K1, K12 and K13 alike)."""
+    split-K sum of every split-K kernel alike)."""
     parts = []
     for name in KERNEL_GROUPS:
         hit = [e for e in kern if name in e.key]
@@ -1486,8 +1522,8 @@ def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
     for lens, span in ((ROUND_A, 512), (ROUND_B, SEQ7B)):
         pos = torch.tensor([lens[i % len(lens)] for i in range(MAX_BATCH)],
                            dtype=torch.int32, device=DEVICE)
-        kern = decode_split(llm, tok, pos, span,
-                            f"7B decode step, 16 slots, span {span}", gen)
+        kern, _ = decode_split(llm, tok, pos, span,
+                               f"7B decode step, 16 slots, span {span}", gen)
         tiled = sum(e.self_device_time_total for e in kern
                     if "tiled_" in e.key) / 4 / layers / 1e3
         if span == SEQ7B:
@@ -1552,9 +1588,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="split a decode step instead of the smoke run")
-    ap.add_argument("--mix-step", action="store_true",
-                    help="split the Q2_K mix's decode step and prefill chunk "
-                    "instead of the smoke run")
+    ap.add_argument("--mix-step", nargs="?", const="q2k_mix",
+                    choices=sorted(STEP_NAMES),
+                    help="split a checkpoint's decode step and prefill chunk "
+                    "(bf16 activations; default the Q2_K mix) instead of the "
+                    "smoke run")
     ap.add_argument("--write", choices=sorted(CHECKPOINTS),
                     help=argparse.SUPPRESS)   # a checkpoint writer's child
     args = ap.parse_args()
@@ -1577,7 +1615,8 @@ def main() -> int:
     with phase("build the GGUF quantizer core"):
         build.build("gguf_kquant")     # before the writers that use it
     writers = Writers(args.seed, ("q5km",) if args.profile else
-                      ("q2k_mix",) if args.mix_step else tuple(CHECKPOINTS))
+                      (args.mix_step,) if args.mix_step else
+                      tuple(CHECKPOINTS))
     try:
         with phase("build kernels"):
             build_kernels()
@@ -1585,7 +1624,8 @@ def main() -> int:
             profile_decode(writers.wait("q5km"), args.seed)
             return 0
         if args.mix_step:
-            mix_step(writers.wait("q2k_mix"), args.seed)
+            mix_step(writers.wait(args.mix_step), args.seed,
+                     STEP_NAMES[args.mix_step])
             return 0
         kernels = smoke(args.seed, writers)
     finally:
@@ -1707,18 +1747,24 @@ def _chunk_tokens(seed: int) -> np.ndarray:
         0, CFG.vocab_size, (1, engine_mod.PREFILL_CHUNK))
 
 
-def mix_step(path: str, seed: int) -> None:
-    """`--mix-step`: the Q2_K mix's 16-slot decode step at span 256, split
-    as the smoke run splits it (twice), and its 512-token prefill chunk;
-    nothing is checked. It imports nothing the port's earlier trees lack,
-    so a copy of this script beside an earlier tree measures that tree in
-    the same call (earlier tree, this one, this one, earlier tree)."""
+# `--mix-step` checkpoints: tag -> name in the log
+STEP_NAMES = {"q2k_mix": "TinyLlama Q2_K mix", "q5km": "TinyLlama Q5_K_M bf16",
+              "iq4_xs_2l": "TinyLlama IQ4_XS (2 layers)"}
+
+
+def mix_step(path: str, seed: int, name: str) -> None:
+    """`--mix-step [TAG]`: a checkpoint's 16-slot decode step at span 256
+    with bf16 activations (`MMOpts()`), split as the smoke run splits it
+    (twice), and its 512-token prefill chunk; nothing is checked. It
+    imports nothing the port's earlier trees lack, so a copy of this script
+    beside an earlier tree measures that tree in the same call (earlier
+    tree, this one, this one, earlier tree)."""
     llm = LLM(path, max_batch=MAX_BATCH, max_seq=MAX_SEQ, device=DEVICE)
     tok, pos, gen = _step_inputs(seed)
     for r in range(2):
-        decode_split(llm, tok, pos, 256, "TinyLlama Q2_K mix decode step, 16 "
-                     f"slots, span 256 (round {r})", gen)
-    prefill_chunk(llm, _chunk_tokens(seed), 0, "TinyLlama Q2_K mix")
+        decode_split(llm, tok, pos, 256, f"{name} decode step, 16 slots, "
+                     f"span 256 (round {r})", gen)
+    prefill_chunk(llm, _chunk_tokens(seed), 0, name)
 
 
 def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
@@ -1798,9 +1844,13 @@ def iq4_paths(seed: int, writers: Writers, gen: torch.Generator,
         llms = {fmt: LLM(path, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
                          device=DEVICE) for fmt, path in paths.items()}
     with phase("K14 vs plain"):
-        compare_lowbit([c for fmt, llm in llms.items()
-                        for c in _lowbit_cases("mmq_iq4", llm.params,
-                                               f"{fmt} ")], gen, rep)
+        cases = []
+        for fmt, llm in llms.items():
+            head = llm.params["output"]
+            cases += _lowbit_cases("mmq_iq4", llm.params, f"{fmt} ")
+            cases.append(("mmq_iq4", f"{fmt} head[:1000] ",
+                          head.take_rows(torch.arange(1000))))
+        compare_lowbit(cases, gen, rep)
     with phase("serve IQ4_XS (2 layers)"):
         launches = serve(llms["iq4_xs"], seed, IQ4_XS_KERNELS,
                          forbidden=other_mmq(IQ4_XS_KERNELS))
@@ -1858,11 +1908,13 @@ def smoke(seed: int, writers: Writers) -> list:
     with phase("reference check Q5_K_M under act_quant"):
         # the same weights with bf16 activations first: the act_quant
         # bound is wider than that path's by the quantization alone
+        # and, last, the bf16 "fast" route the next phase serves
         cpu5, logits = reference_check(
             path5, llm5, seed,
             ((2, MMOpts(precision="high"), TOL_LOGITS),
              (2, ACT_QUANT, TOL_LOGITS_ACT_QUANT),
-             (CFG.n_layers, ACT_QUANT, None)))
+             (CFG.n_layers, ACT_QUANT, None),
+             (2, MMOpts(), TOL_LOGITS)))
         err, rel = rel_err(logits[0][1], logits[1][0])
         log(f"a wrong route at 2 layers (card without act_quant vs CPU "
             f"under it): max|d|={err:.3e} rel={rel:.2e}")
@@ -1870,6 +1922,22 @@ def smoke(seed: int, writers: Writers) -> list:
             projection_check(cpu5, llm5, seed, t)
     with phase("perplexity"):
         perplexity_check(path5, llm5, cpu5, seed)
+
+    log("== Q5_K_M, bf16 activations, MMOpts() (K8 'fast', K2-K4) ==")
+    llm5.opts = MMOpts()
+    with phase("serve Q5_K_M bf16"):
+        launches.update({k: v for k, v in serve(
+            llm5, seed, Q5KM_BF16_KERNELS,
+            forbidden=other_mmq(Q5KM_BF16_KERNELS)).items()
+            if k in Q5KM_BF16_KERNELS})
+    with phase("Q5_K_M bf16 decode step and prefill chunk"):
+        tok, pos, gen_step = _step_inputs(seed)
+        _, per_step = decode_split(llm5, tok, pos, 256, "TinyLlama Q5_K_M "
+                                   "bf16 decode step, 16 slots, span 256",
+                                   gen_step)
+        if per_step.get("mmq_q5_k") != 4 * CFG.n_layers:
+            raise AssertionError(f"K8 launches per decode step: {per_step}")
+        prefill_chunk(llm5, _chunk_tokens(seed), 0, "TinyLlama Q5_K_M bf16")
     del llm5, cpu5
     torch.cuda.empty_cache()
 
@@ -1923,7 +1991,7 @@ def smoke(seed: int, writers: Writers) -> list:
     # where the profiler recorded none); "bound_ms": the larger of the
     # bytes over 3.35 TB/s and the operations over their peak;
     # "library_ms": one PyTorch call computing the same function (null
-    # where there is none)
+    # where there is none); "wide": the same at the kernel's WIDE shape
     return [{"name": name, "route": "cuda", "source": src,
              "replaces": replaces, "shape": HEADLINE[name],
              "launches": launches[name], "max_abs_err": rep.err[name],
@@ -1931,7 +1999,8 @@ def smoke(seed: int, writers: Writers) -> list:
              "bound_ms": rep.bound[name][0], "bound_by": rep.bound[name][1],
              "library_ms": rep.library[name],
              "device_ms": rep.times[name][2],
-             "plain_device_ms": rep.times[name][3]}
+             "plain_device_ms": rep.times[name][3],
+             **({"wide": rep.wide[name]} if name in rep.wide else {})}
             for name, (src, replaces) in KERNELS.items()]
 
 

@@ -46,7 +46,8 @@ __device__ __forceinline__ float half_hi(unsigned v) {
   return __half2float(__ushort_as_half(static_cast<unsigned short>(v >> 16)));
 }
 
-// The float MMQ tile (K1 and K8): out (N, M) f32 = x (N, K) . W (M, K)^T.
+// The SIMT MMQ tile of K1 and K8 under "high" (f32 operands and products;
+// "fast" runs kquant_tc.cuh): out (N, M) f32 = x (N, K) . W (M, K)^T.
 // A block of 256 threads owns BM = 64 rows and BN activation rows and walks
 // K in 64-element steps (mmq_common.cuh). Thread (r, q) decodes bytes
 // 8q .. 8q+7 of each 32-byte nibble run of row r: 8 low-nibble elements of
@@ -58,7 +59,7 @@ template <bool HAS_QH, int BN, int TM, int TN, bool XBF16>
 __device__ __forceinline__ void mmq_tile(const uint8_t* __restrict__ w,
                                          const void* __restrict__ x,
                                          float* __restrict__ out, int M, int N,
-                                         int K, int ldx, int glu, int fast) {
+                                         int K, int ldx, int glu) {
   using namespace mmq;
   using L = Layout<HAS_QH>;
   __shared__ float ws[KT][BM + 1];
@@ -102,16 +103,12 @@ __device__ __forceinline__ void mmq_tile(const uint8_t* __restrict__ w,
           lo |= ((hb >> (2 * g)) & 1) << 4;
           hi |= ((hb >> (2 * g + 1)) & 1) << 4;
         }
-        float wl = __fsub_rn(__fmul_rn(s0, static_cast<float>(lo)), z0);
-        float wh = __fsub_rn(__fmul_rn(s1, static_cast<float>(hi)), z1);
-        if (fast) {
-          wl = bf16_round(wl);
-          wh = bf16_round(wh);
-        }
+        const float wl = __fsub_rn(__fmul_rn(s0, static_cast<float>(lo)), z0);
+        const float wh = __fsub_rn(__fmul_rn(s1, static_cast<float>(hi)), z1);
         ws[8 * q + i][r] = row_ok ? wl : 0.f;
         ws[32 + 8 * q + i][r] = row_ok ? wh : 0.f;
       }
-      stage_x<BN, XBF16>(xs, x, ldx, N, K, n0, sb * 256 + 64 * g, glu, fast);
+      stage_x<BN, XBF16>(xs, x, ldx, N, K, n0, sb * 256 + 64 * g, glu, 0);
       __syncthreads();
       fma_tile<BN, TM, TN>(ws, xs, acc, tx, ty);
       __syncthreads();

@@ -130,11 +130,6 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE + 1024;
 };
 
-// signed byte i of v as an exact float
-__device__ __forceinline__ float scode_f(uint32_t v, int i) {
-  return __uint_as_float(__byte_perm(v ^ 0x80808080u, 0x4B000000u, 0x7440 + i)) - 8388736.0f;
-}
-
 // byte i of v (a 6-bit code) minus 32, as an exact float
 __device__ __forceinline__ float q6_f(uint32_t v, int i) {
   return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)) - 8388640.0f;

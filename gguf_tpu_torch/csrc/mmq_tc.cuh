@@ -1,8 +1,9 @@
-// The tensor-core MMQ tiles of K1 (mmq_q4_k.cu, "fast") and K7
-// (mmq_i8.cu) over Q4_K / Q5_K superblocks as stored in GGUF
-// (kquant.cuh), and of K2 (mmq_q6_k.cu) and K12 (mmq_q2_k.cu) under "fast"
-// over the per-field arrays of Q6_K / Q2_K (KH-element chunks, their notes
-// say how): TMA copies of the weight bytes into a ring of shared-memory
+// The tensor-core MMQ tiles of K1 and K8 under "fast" (kquant_tc.cuh, for
+// mmq_q4_k.cu and mmq_q5_k.cu) and K7 (mmq_i8.cu) over Q4_K / Q5_K
+// superblocks as stored in GGUF (kquant.cuh), and of K2 (mmq_q6_k.cu), K12
+// (mmq_q2_k.cu) and K14 (block32_tc.cuh, for mmq_iq4.cu) under "fast" over
+// the per-field arrays of Q6_K / Q2_K / IQ4 (KH-element chunks, their
+// notes say how): TMA copies of the weight bytes into a ring of shared-memory
 // stages, each completing on its stage's mbarrier, the A fragments decoded
 // from those bytes in registers, and the bf16 wgmma instructions with A
 // from registers.
@@ -124,6 +125,11 @@ inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* base, CUtensorMap
 // byte i (a code < 256) of v as an exact float
 __device__ __forceinline__ float code_f(uint32_t v, int i) {
   return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)) - 8388608.0f;
+}
+
+// signed byte i of v as an exact float
+__device__ __forceinline__ float scode_f(uint32_t v, int i) {
+  return __uint_as_float(__byte_perm(v ^ 0x80808080u, 0x4B000000u, 0x7440 + i)) - 8388736.0f;
 }
 
 // (d*sc, dmin*mn) of 32-blocks 2j and 2j+1 from a superblock header,

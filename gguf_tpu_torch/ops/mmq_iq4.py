@@ -12,7 +12,9 @@ f32-accumulated product. `act_quant=True` fake-quantizes the activations
 to Q8_1 first (K6) at any width, as the JAX package does (default False,
 see `mmq_q4_k`). Counterpart of `gguf_tpu/ops/mmq_iq4.py` (`mmq_iq4_nl`,
 `mmq_iq4_xs`, Pallas `_kernel`); the CUDA source is
-`gguf_tpu_torch/csrc/mmq_iq4.cu` over the tile in `csrc/block32.cuh`.
+`gguf_tpu_torch/csrc/mmq_iq4.cu`: "fast" runs its bf16 tensor-core tile
+(`csrc/block32_tc.cuh`, 128-element chunks, split as `tc_plan` says),
+"high" the SIMT f32 tile of `csrc/block32.cuh`.
 
 On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
 tensor they launch K14 or raise. `mmq_iq4.launches` counts K14 launches,
@@ -28,12 +30,13 @@ import torch
 from ..quant.layouts import QuantWeight
 from . import build
 from .activation import fake_quant_2d
-from .mmq_q4_k import check_operands, check_precision, matmul_plain
+from .mmq_q4_k import check_operands, check_precision, launch_tc, matmul_plain
 from .mmq_q8_0 import format_wrapper, launch_split_k
 
 IQ4 = ("iq4_nl", "iq4_xs")
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"mmq_iq4_launch": [_VP] * 7 + [_I] * 8 + [_VP]}
+_SIG = {"mmq_iq4_launch": [_VP] * 7 + [_I] * 8 + [_VP],
+        "mmq_iq4_tc_launch": [_VP] * 8 + [_I] * 7 + [_VP]}
 
 
 def mmq_iq4_plain(w: QuantWeight, b: torch.Tensor, *,
@@ -63,11 +66,18 @@ def mmq_iq4(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
         return mmq_iq4_plain(w, b, precision=precision)
     if b.device.type != "cuda":
         raise ValueError(f"mmq_iq4 runs on cpu or cuda, not {b.device}")
-    f = w.fields
-    out = launch_split_k(
-        _lib().mmq_iq4_launch, w, b,
-        [(f["d"], 2), (f.get("scales_h"), 2), (f.get("scales_l"), 1),
-         (f["qs"], 16)], (int(w.fmt == "iq4_xs"),), precision, "mmq_iq4")
+    f, xs = w.fields, int(w.fmt == "iq4_xs")
+    if precision == "fast":
+        # IQ4_NL's four d of a chunk are one 8-byte load
+        out = launch_tc(_lib().mmq_iq4_tc_launch, w, b,
+                        [(f["d"], 2 if xs else 8), (f.get("scales_h"), 2),
+                         (f.get("scales_l"), 2), (f["qs"], 16)], "mmq_iq4",
+                        extra=(xs,))
+    else:
+        out = launch_split_k(
+            _lib().mmq_iq4_launch, w, b,
+            [(f["d"], 2), (f.get("scales_h"), 2), (f.get("scales_l"), 1),
+             (f["qs"], 16)], (xs,), precision, "mmq_iq4")
     if b.shape[0]:
         mmq_iq4.launches += 1
     return out

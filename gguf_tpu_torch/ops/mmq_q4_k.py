@@ -9,9 +9,10 @@ widths, `_kernel_i8` under act_quant); the CUDA sources are
 `gguf_tpu_torch/csrc/mmq_q4_k.cu` (K1) and `mmq_i8.cu` (K7). K1 "fast"
 runs on bf16 tensor cores (wgmma) and K7 on int8 ones (mma.sync), both
 over the TMA-fed tile of `csrc/mmq_tc.cuh`; K1 "high" runs the SIMT f32
-tile of `csrc/kquant.cuh`, which K8 shares. Their wrappers pick the split
-of K (`split_k`) and allocate its scratch; `launch_tc` does the same for
-the "fast" tensor-core tiles of K2 (`mmq_q6_k`) and K12 (`mmq_q2_k`).
+tile of `csrc/kquant.cuh`; K8 (`mmq_q5_k`) runs both tiles too. Their
+wrappers pick the split of K (`k1_plan`, `split_k`) and allocate its
+scratch; `launch_tc` does the same for the "fast" tensor-core tiles of K2
+(`mmq_q6_k`), K8, K12 (`mmq_q2_k`) and K14 (`mmq_iq4`).
 
 `precision="fast"` rounds both operands to bf16 before the f32-accumulated
 product (the TPU's single-pass bf16 MXU contract); "high" keeps f32.
@@ -69,15 +70,14 @@ def tc_tile(n: int) -> tuple:
 
 def split_k(m: int, n: int, k: int, sms: int, tile: tuple | None = None,
             per_sm: int = 2, kt: int = KT) -> tuple:
-    """How the split-K kernels (K1, K2 and K12 "fast", K7, K10-K14) cut K
-    across the grid's z axis: (splits, K steps of `kt` per split), for a
-    tile of (rows, width) = `tile`, by default (BM, 8, 16 or 64 from n).
-    Enough blocks for `per_sm` per SM when M and N give too few (decode
-    widths at M = 2048: 32 blocks), at most MAX_SPLITS; the partial sums
-    are then added in split order by a second launch, so the result does
-    not depend on the schedule. K1 "fast" asks for 4 per SM at decode
-    widths, where its blocks are small and hide latency with more of
-    them."""
+    """How the split-K kernels (K1, K2, K8, K12 and K14 "fast", K7,
+    K10-K14) cut K across the grid's z axis: (splits, K steps of `kt` per
+    split), for a tile of (rows, width) = `tile`, by default (BM, 8, 16 or
+    64 from n). Enough blocks for `per_sm` per SM when M and N give too
+    few (decode widths at M = 2048: 32 blocks), at most MAX_SPLITS; the
+    partial sums are then added in split order by a second launch, so the
+    result does not depend on the schedule (`k1_plan` asks for 4 per SM
+    at decode widths)."""
     bm, bn = tile or (BM, 8 if n <= 8 else 16 if n <= 16 else 64)
     steps = -(-k // kt)
     blocks = -(-m // bm) * -(-n // bn)
@@ -96,36 +96,47 @@ def split_scratch(splits: int, n: int, m: int,
 
 
 def tc_plan(m: int, n: int, k: int, sms: int) -> tuple:
-    """(splits, chunks per split) of K2's and K12's "fast" tensor-core tiles
-    (KH-element chunks, the tile `tc_tile(n)`), 2 blocks per SM asked at
-    every width: the 32000-row head (500 row blocks) is not split, where 4
-    per SM would split it in two and add a partial-sum pass."""
+    """(splits, chunks per split) of K2's, K12's and K14's "fast"
+    tensor-core tiles (KH-element chunks, the tile `tc_tile(n)`), 2 blocks
+    per SM asked at every width: the 32000-row head (500 row blocks) is not
+    split, where 4 per SM would split it in two and add a partial-sum
+    pass."""
     return split_k(m, n, k, sms, tc_tile(n), 2, KH)
 
 
+def k1_plan(m: int, n: int, k: int, sms: int) -> tuple:
+    """(splits, chunks per split) of K1's and K8's "fast" tensor-core tile
+    (KT-element chunks, the tile `tc_tile(n)`): 4 blocks per SM asked at
+    decode widths, where its blocks are small and hide latency with more of
+    them, 2 above."""
+    return split_k(m, n, k, sms, tc_tile(n), 4 if n <= 16 else 2)
+
+
 def launch_tc(fn, w: QuantWeight, b: torch.Tensor, fields: list,
-              what: str) -> torch.Tensor:
-    """Launch K2's or K12's "fast" tensor-core tile on validated CUDA
-    operands: `fn(*fields, x, xb, out, part, M, N, K, x_bf16, splits,
-    chunks_per_split, stream)`, `fields` listing (tensor, the byte alignment
-    its loads need: 16 for a TMA box). The kernel takes a bf16 (N, K)
-    operand: b itself, or scratch it fills first."""
+              what: str, extra: tuple = (), plan=tc_plan) -> torch.Tensor:
+    """Launch a "fast" tensor-core tile (K2, K8, K12, K14) on validated
+    CUDA operands: `fn(*fields, x, xb, out, part, *extra, M, N, K, x_bf16,
+    splits, chunks_per_split, stream)`, `fields` listing (tensor or None
+    where the format has no such field, the byte alignment its loads need:
+    16 for a TMA box), K split as `plan(M, N, K, SMs)` says. The kernel
+    takes a bf16 (N, K) operand: b itself, or scratch it fills first."""
     (m, k), n = w.shape, b.shape[0]
     b = b.contiguous()
-    if any(not f.is_contiguous() or f.data_ptr() % a for f, a in fields):
+    if any(f is not None and (not f.is_contiguous() or f.data_ptr() % a)
+           for f, a in fields):
         raise ValueError(f"{what}: weight fields must be contiguous and "
                          "aligned")
     out = torch.empty((n, m), dtype=torch.float32, device=b.device)
     if n == 0:
         return out
-    splits, per = tc_plan(m, n, k, sm_count(b.device.index or 0))
+    splits, per = plan(m, n, k, sm_count(b.device.index or 0))
     direct = b.dtype == torch.bfloat16 and b.data_ptr() % 16 == 0
     xb = b if direct else torch.empty((n, k), dtype=torch.bfloat16,
                                       device=b.device)
-    err = fn(*(build.ptr(f) for f, _ in fields), build.ptr(b), build.ptr(xb),
-             build.ptr(out), build.ptr(split_scratch(splits, n, m, out)),
-             m, n, k, int(b.dtype == torch.bfloat16), splits, per,
-             build.stream_ptr())
+    err = fn(*(None if f is None else build.ptr(f) for f, _ in fields),
+             build.ptr(b), build.ptr(xb), build.ptr(out),
+             build.ptr(split_scratch(splits, n, m, out)), *extra, m, n, k,
+             int(b.dtype == torch.bfloat16), splits, per, build.stream_ptr())
     build.check(err, what)
     return out
 
@@ -199,9 +210,8 @@ def _mmq_q4_k_float(w: QuantWeight, b: torch.Tensor, precision: str,
     if n == 0:
         return out
     fast = precision == "fast"
-    per_sm = 4 if n <= 16 else 2   # decode widths: small blocks, more of them
-    splits, per = (split_k(m, n, k, sm_count(b.device.index or 0),
-                           tc_tile(n), per_sm) if fast else (1, 1))
+    splits, per = (k1_plan(m, n, k, sm_count(b.device.index or 0))
+                   if fast else (1, 1))
     # "fast" takes a bf16 (N, K) operand: b itself, or scratch the kernel
     # fills first (bf16(b), or bf16(act(gate) * up) with glu)
     direct = (b.dtype == torch.bfloat16 and glu is None

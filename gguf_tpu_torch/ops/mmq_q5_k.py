@@ -7,7 +7,9 @@ is (d*sc)*q - dmin*mn with a 5-bit q: the Q4_K nibble plus a fifth bit
 from the block's qh bytes. No `glu`: the JAX package never fuses the
 gated activation into a Q5_K down projection. Counterpart of
 `gguf_tpu/ops/mmq_q5_k.py:mmq_q5_k` (Pallas `_kernel_ink` and `_kernel`);
-the CUDA source is `gguf_tpu_torch/csrc/mmq_q5_k.cu`.
+the CUDA source is `gguf_tpu_torch/csrc/mmq_q5_k.cu`. "fast" runs K1's
+bf16 tensor-core tile (`csrc/kquant_tc.cuh`) with the fifth bit, split as
+K1 splits (`k1_plan`); "high" runs the SIMT f32 tile of `csrc/kquant.cuh`.
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches K8 or raises. `mmq_q5_k.launches` counts K8 launches.
@@ -21,11 +23,12 @@ import torch
 
 from ..quant.layouts import QuantWeight
 from . import build
-from .mmq_q4_k import (check_operands, check_precision, matmul_plain,
-                       route_act_quant)
+from .mmq_q4_k import (check_operands, check_precision, k1_plan, launch_tc,
+                       matmul_plain, route_act_quant)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"mmq_q5_k_launch": [_VP] * 3 + [_I] * 5 + [_VP]}
+_SIG = {"mmq_q5_k_launch": [_VP] * 3 + [_I] * 5 + [_VP],
+        "mmq_q5_k_tc_launch": [_VP] * 5 + [_I] * 6 + [_VP]}
 
 
 def dequantize_q5_k_plain(w: QuantWeight) -> torch.Tensor:
@@ -54,20 +57,24 @@ def _mmq_q5_k_float(w: QuantWeight, b: torch.Tensor,
         return mmq_q5_k_plain(w, b, precision=precision)
     if b.device.type != "cuda":
         raise ValueError(f"mmq_q5_k runs on cpu or cuda, not {b.device}")
-    (m, k), n = w.shape, b.shape[0]
-    b = b.contiguous()
     blocks = w.fields["blocks"]
-    if blocks.data_ptr() % 16:
-        raise ValueError("Q5_K blocks must be 16-byte aligned")
-    out = torch.empty((n, m), dtype=torch.float32, device=b.device)
-    if n == 0:
-        return out
-    err = _lib().mmq_q5_k_launch(
-        build.ptr(blocks), build.ptr(b), build.ptr(out), m, n, k,
-        int(b.dtype == torch.bfloat16), int(precision == "fast"),
-        build.stream_ptr())
-    build.check(err, "mmq_q5_k")
-    mmq_q5_k.launches += 1
+    if precision == "fast":
+        out = launch_tc(_lib().mmq_q5_k_tc_launch, w, b, [(blocks, 16)],
+                        "mmq_q5_k", plan=k1_plan)
+    else:
+        (m, k), n = w.shape, b.shape[0]
+        b = b.contiguous()
+        if blocks.data_ptr() % 16:
+            raise ValueError("Q5_K blocks must be 16-byte aligned")
+        out = torch.empty((n, m), dtype=torch.float32, device=b.device)
+        if n == 0:
+            return out
+        err = _lib().mmq_q5_k_launch(
+            build.ptr(blocks), build.ptr(b), build.ptr(out), m, n, k,
+            int(b.dtype == torch.bfloat16), 0, build.stream_ptr())
+        build.check(err, "mmq_q5_k")
+    if b.shape[0]:
+        mmq_q5_k.launches += 1
     return out
 
 

@@ -34,7 +34,7 @@ _SIG = {"mmq_q8_0_launch": [_VP] * 5 + [_I] * 7 + [_VP]}
 
 def launch_split_k(fn, w: QuantWeight, b: torch.Tensor, fields: list,
                    extra: tuple, precision: str, what: str) -> torch.Tensor:
-    """Launch a split-K SIMT MMQ kernel (K10, K11, K13, K14, K12 "high")
+    """Launch a split-K SIMT MMQ kernel (K10, K11, K13; K12 and K14 "high")
     on validated CUDA operands:
     `fn(*fields, x, out, part, *extra, M, N, K, x_bf16, fast, splits,
     steps_per_split, stream)`; `fields` lists (tensor or None where the

@@ -5,6 +5,9 @@ version of K14 (`mmq_iq4_nl`, `mmq_iq4_xs`, one kernel and one launch
 counter) against the Pallas kernel in interpret mode in both width arms
 and against the byte-level goldens."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ import gguf_tpu.quant as jax_quant
 from gguf_tpu.quant import quantize_q8_1
 from gguf_tpu.quant.layouts import to_soa
 from gguf_tpu.utils import allclose_rel, max_rel_err
-from gguf_tpu_torch.ops import MMQ, mmq_iq4, mmq_iq4_nl, mmq_iq4_xs
+from gguf_tpu_torch.ops import MMQ, build, mmq_iq4, mmq_iq4_nl, mmq_iq4_xs
 from gguf_tpu_torch.ops.mmq_iq4 import mmq_iq4_plain
 from gguf_tpu_torch.quant import QUANTIZERS, QuantWeight, concat_m
 from gguf_tpu_torch.quant.iq4 import KVALUES
@@ -66,6 +69,53 @@ def _awkward(m: int, k: int, seed: int) -> np.ndarray:
 
 def test_codebook_is_ggml_kvalues():
     np.testing.assert_array_equal(KVALUES, jax_quant.iq4.KVALUES)
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint64 arrays holding 32-bit words: result
+    byte i is byte (s >> 4i) & 7 of y:x. A selector nibble with bit 3 set
+    would ask PTX's prmt for sign replication, which the kernel's lookup
+    must never do, so it is refused here."""
+    x, y, s = (np.asarray(v, np.uint64) for v in (x, y, s))
+    assert not np.any(s & np.uint64(0x8888)), "selector with bit 3 set"
+    xy = x | (y << np.uint64(32))
+    out = np.zeros(np.broadcast(x, y, s).shape, np.uint64)
+    for i in range(4):
+        sel = (s >> np.uint64(4 * i)) & np.uint64(7)
+        byte = (xy >> (np.uint64(8) * sel)) & np.uint64(0xFF)
+        out |= byte << np.uint64(8 * i)
+    return out
+
+
+def test_tensor_core_codebook_lookup_returns_kvalues():
+    """K14's tensor-core tile looks up the eight codes of a word four at a
+    time (csrc/mmq_iq4.cu: iq4_values): the packed codebook words and the
+    selector constants, parsed from the CUDA source and run through the
+    same permutes in numpy, give KVALUES for every quadruple of codes in
+    the low nibbles and, rotated, in the high ones."""
+    with open(os.path.join(build.CSRC_DIR, "mmq_iq4.cu")) as f:
+        c = {k: int(v, 16) for k, v in
+             re.findall(r"constexpr uint32_t IQ4_(\w+) = (0x[0-9A-Fa-f]+)u;",
+                        f.read())}
+    assert sorted(c) == ["BIT3", "HI", "IDX", "KV0", "KV1", "KV2", "KV3",
+                         "LO", "PICK"], c
+    q = np.stack(np.meshgrid(*[np.arange(16, dtype=np.uint64)] * 4,
+                             indexing="ij"), axis=-1).reshape(-1, 4)
+    lo, hi = q, np.roll(q, 1, axis=1)
+    v = sum((lo[:, i] | hi[:, i] << np.uint64(4)) << np.uint64(8 * i)
+            for i in range(4))
+    idx = v & np.uint64(c["IDX"])
+    pick = np.uint64(c["PICK"]) | ((v & np.uint64(c["BIT3"])) >> np.uint64(1))
+    r = [_byte_perm(_byte_perm(c["KV0"], c["KV1"], idx >> np.uint64(16 * i)),
+                    _byte_perm(c["KV2"], c["KV3"], idx >> np.uint64(16 * i)),
+                    (pick >> np.uint64(16 * i)) & np.uint64(0xFFFF))
+         for i in range(2)]
+    for sel, codes in ((c["LO"], lo), (c["HI"], hi)):
+        got = _byte_perm(r[0], r[1], sel)
+        shifts = np.uint64(8) * np.arange(4, dtype=np.uint64)
+        vals = ((got[:, None] >> shifts) & np.uint64(0xFF)).astype(
+            np.uint8).view(np.int8)
+        np.testing.assert_array_equal(vals, KVALUES[codes.astype(np.int64)])
 
 
 @pytest.mark.filterwarnings("ignore:invalid value")

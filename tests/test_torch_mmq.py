@@ -18,8 +18,8 @@ from gguf_tpu.quant import (dequantize_q4_k, dequantize_q5_k, dequantize_q6_k,
                             quantize_q4_k, quantize_q5_k, quantize_q6_k)
 from gguf_tpu.quant.layouts import to_soa
 from gguf_tpu_torch.ops import MMQ, build, mmq_q4_k, mmq_q5_k, mmq_q6_k
-from gguf_tpu_torch.ops.mmq_q4_k import (KH, dequantize_q4_k_plain, split_k,
-                                         tc_plan, tc_tile)
+from gguf_tpu_torch.ops.mmq_q4_k import (KH, KT, dequantize_q4_k_plain,
+                                         k1_plan, split_k, tc_plan, tc_tile)
 from gguf_tpu_torch.ops.mmq_q5_k import dequantize_q5_k_plain
 from gguf_tpu_torch.ops.mmq_q6_k import dequantize_q6_k_plain
 from gguf_tpu_torch.quant import QuantWeight, concat_m
@@ -168,11 +168,13 @@ _DISPATCH = re.compile(
 
 
 @pytest.mark.parametrize("source", ["mmq_q4_k.cu", "mmq_q6_k.cu",
-                                    "mmq_q2_k.cu"])
+                                    "mmq_q2_k.cu", "mmq_q5_k.cu",
+                                    "mmq_iq4.cu"])
 def test_cuda_dispatch_matches_tc_tile(source):
-    """The tensor-core launch of K1, K2 and K12 dispatches the tile that
-    `tc_tile` (and so the wrappers' split plan) assumes, at every width
-    from 1 to 512: (activation rows, warpgroups of 64 weight rows)."""
+    """The tensor-core launch of K1, K2, K12, K8 and K14 dispatches the
+    tile that `tc_tile` (and so the wrappers' split plan) assumes, at
+    every width from 1 to 512: (activation rows, warpgroups of 64 weight
+    rows)."""
     with open(os.path.join(build.CSRC_DIR, source)) as f:
         arms = [(int(lim) if lim else None, int(bn), int(wg))
                 for lim, bn, wg in _DISPATCH.findall(f.read())]
@@ -200,6 +202,30 @@ def test_tc_plan_of_k2_and_k12(m, n, k, want):
     (500 row blocks fill 132 SMs), the small Q2_K weights are cut."""
     assert tc_plan(m, n, k, 132) == want
     assert want == split_k(m, n, k, 132, tc_tile(n), 2, KH)
+
+
+# K8 "fast" (K1's plan: 64-element chunks, 4 blocks per SM at n <= 16)
+# and K14 "fast" (tc_plan: 128-element chunks, 2 per SM) at the TinyLlama
+# projections and head: (m, n, k, K8's plan, K14's plan)
+_TINYLLAMA_PLANS = [
+    (2560, 16, 2048, (8, 4), (6, 3)), (2560, 512, 2048, (4, 8), (4, 4)),
+    (2048, 16, 2048, (8, 4), (8, 2)), (2048, 512, 2048, (5, 7), (4, 4)),
+    (11264, 16, 2048, (3, 11), (2, 8)), (11264, 512, 2048, (1, 32), (1, 16)),
+    (2048, 16, 5632, (8, 11), (8, 6)), (2048, 512, 5632, (5, 18), (5, 9)),
+    (32000, 16, 2048, (2, 16), (1, 16)), (32000, 512, 2048, (1, 32), (1, 16))]
+
+
+@pytest.mark.parametrize("m,n,k,k8,k14", _TINYLLAMA_PLANS)
+@pytest.mark.parametrize("kernel", ["k8", "k14"])
+def test_split_plan_of_k8_and_k14(kernel, m, n, k, k8, k14):
+    """K8's wrapper splits K as K1's does (`k1_plan`) and K14's as K2's and
+    K12's do (`tc_plan`): every split holds a chunk, as the C entry points
+    check, and the 32000-row heads stay whole under `tc_plan`."""
+    plan, kt, want = ((k1_plan, KT, k8) if kernel == "k8"
+                      else (tc_plan, KH, k14))
+    splits, per = plan(m, n, k, 132)
+    assert (splits, per) == want
+    assert (splits - 1) * per < k // kt <= splits * per
 
 
 @pytest.mark.parametrize("m,n,k,tile,per_sm,kt,want", [
