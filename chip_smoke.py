@@ -59,15 +59,20 @@ precision="high")` (kernels K2-K8):
 The 32-element-block formats (kernels K10 `mmq_q8_0` and K11
 `mmq_legacy`, with K3, K4 and, under act_quant, K6):
 8. holds K10 against its plain version at every TinyLlama projection and
-   the head and K11 for Q4_0, Q4_1, Q5_0 and Q5_1 at gate_up and down,
-   n = 1, 16, 64, 65, 512, "fast" (1e-3 of max|ref|) and "high" (1e-5),
-   on bf16 activations and fed K6's output (K11 with its fp16 block
-   sums), and K10 through `compat.mmq_q8_0` at M, N in {1, 4, 16} and
+   the head, n = 1, 16, 64, 65, 512, "fast" (1e-3 of max|ref|) and "high"
+   (1e-5), on bf16 activations and fed K6's output; K11 for Q4_0, Q4_1,
+   Q5_0 and Q5_1 on wqkv, gate_up, down and the head's first 1000 rows:
+   "fast" (tensor cores, 1e-3) at the widths of 1., and at n = 16 and 512
+   on f32 activations as given and as K6's output with fp16 block sums;
+   "high" (1e-5) on gate_up and down at n = 1, 16, 64, 65, 512 and fed
+   K6's output; K10 through `compat.mmq_q8_0` at M, N in {1, 4, 16} and
    K = 32, 64, 96, 128;
 9. serves the 24 prompts through the 22-layer Q8_0 and then the Q4_0
    checkpoint (bf16 activations), requiring launches of K10 (then K11),
    K3 and K4 and none of K1, K2, K7 or K8, then splits a 16-slot decode
-   step of each at span 256 (host clock and `torch.profiler`);
+   step of each at span 256 (host clock and `torch.profiler`; 89 K10 or
+   K11 launches per step required) and times a Q4_0 512-token prefill
+   chunk;
 10. checks 2 layers of each of the five formats against the CPU run
    (logits within 1e-2), and for Q8_0 and Q5_1 every projection of a
    16- and a 64-token act_quant prefill as in 6 (routes K6+K10, K6+K11).
@@ -76,11 +81,11 @@ The low-bit formats (kernels K12 `mmq_q2_k`, K13 `mmq_q3_k`, K14
 `mmq_iq4`, with K1-K4 in the Q2_K mix; K15 `rms_norm`):
 a. holds K1 against its plain version on the mix's 256-row Q4_K wv at every
    width of 1., and K12 and K13 against theirs at every projection of
-   the 2-layer Q2_K / Q3_K files, the head and the mix's unfused wq and
-   wk (K12 also on the head's first 1000 rows), K13 at n = 1, 16, 64,
-   65, 512, K12 at the widths of 1. (both sides of its n_pad <= 64 arm
-   and of every tile of its tensor-core "fast" form), "fast" (1e-3 of
-   max|ref|) and "high" (1e-5), on bf16 activations and fed K6's output,
+   the 2-layer Q2_K / Q3_K files and the head, K12 also on the mix's
+   unfused wq and wk and the head's first 1000 rows, K13 on the mix's wo
+   and down, both at the widths of 1. (both sides of K12's n_pad <= 64
+   arm and of every tile of their tensor-core "fast" forms), "fast" (1e-3
+   of max|ref|) and "high" (1e-5), on bf16 activations and fed K6's output,
    and through `compat.mmq_q2_k` / `compat.mmq_q3_k` at M, N in {1, 4,
    16}, K = 256 and 512; K15 against its plain version at n = 1, 16, 64,
    d = 2048 and 4096, f32 and bf16 input (1e-6);
@@ -125,7 +130,7 @@ Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 `--profile` instead splits a 16-slot decode step of the Q5_K_M
 checkpoint with bf16 activations and under act_quant (host clock and
 `torch.profiler`), and checks nothing. `--mix-step [q2k_mix|q5km|
-iq4_xs_2l]` instead splits that checkpoint's decode step with bf16
+iq4_xs_2l|q4_0]` instead splits that checkpoint's decode step with bf16
 activations (twice; the Q2_K mix by default) and times its 512-token
 prefill chunk, as b. does, and checks nothing; copied beside an earlier
 tree of the port it measures that tree, so two trees compare in one
@@ -214,9 +219,9 @@ ROUND_B = (600, 800, 1000, 1200, 1400, 1700, 2000, 2100, 2300, 2600, 2900,
 LONG_PROMPT = 2100             # the long-span reference check's prefill
 TILED_SPANS = (1024, 2048, 4096)
 MMQ_NS = (1, 16, 512)
-# the tensor-core tiles (K1, K2 and K12 "fast"): both sides of every tile
-# width of their dispatch (8 | 16 | 64 | 128 activation rows, 64 then 128
-# weight rows per block; K12's split arm up to 64, folded above); K1
+# the tensor-core tiles (K1, K2, K8 and K11-K14 "fast"): both sides of every
+# tile width of their dispatch (8 | 16 | 64 | 128 activation rows, 64 then
+# 128 weight rows per block; K12's split arm up to 64, folded above); K1
 # "high" (the SIMT tile) at a decode and a prefill width
 TC_NS = (1, 8, 9, 16, 17, 64, 65, 512)
 K1_HIGH_NS = (16, 512)
@@ -346,7 +351,9 @@ HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
 WIDE = {"mmq_q4_k": "gate_up 11264x2048 n=512",
         "mmq_q6_k": "head 32000x2048 n=512",
         "mmq_q5_k": "gate_up 11264x2048 n=512 fast",
+        "mmq_legacy": "q4_0 gate_up 11264x2048 n=512 fast",
         "mmq_q2_k": "gate_up 11264x2048 n=512 fast",
+        "mmq_q3_k": "gate_up 11264x2048 n=512 fast",
         "mmq_iq4": "iq4_xs gate_up 11264x2048 n=512 fast"}
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): a kernel's bound
 # is the larger of its bytes over HBM_BPS and its operations over the peak
@@ -1003,45 +1010,71 @@ def compare_head_act_quant(params5: dict, gen: torch.Generator,
 def compare_block32(layer8: dict, head8, legacy: dict,
                     gen: torch.Generator, rep: Report) -> None:
     """K10 at every TinyLlama projection and the head of the Q8_0
-    checkpoint, and K11 at gate_up and down of each legacy format
-    (`legacy`: format -> layer), against their plain versions: bf16
-    activations at BLOCK32_NS, "fast" and "high", and fed K6's output
-    (n = 16, 512, "high"; K11 then rounds its block sums through fp16)."""
-    cases = [("mmq_q8_0", f"{key} ", layer8[key])
-             for key in ("wqkv", "wo", "gate_up", "down")]
-    cases.append(("mmq_q8_0", "head ", head8))
-    cases += [("mmq_legacy", f"{fmt} {key} ", layer[key])
-              for fmt, layer in legacy.items() for key in ("gate_up", "down")]
-    for kernel, label, w in cases:
-        fn = mmq_q8_0 if kernel == "mmq_q8_0" else mmq_legacy
-        shape = f"{label}{w.shape[0]}x{w.shape[1]}"
+    checkpoint against its plain version: bf16 activations at BLOCK32_NS,
+    "fast" and "high", and fed K6's output (n = 16, 512, "high"). K11
+    (`legacy`: format -> params) on wqkv, gate_up, down and the head's first
+    1000 rows of each legacy format: "fast" (its tensor-core tile) at TC_NS
+    on bf16 activations, and at n = 16 and 512 on f32 ones, as given and
+    as K6's output with its block sums rounded through fp16 (the sums then
+    come from the pass over the f32 operand, not from the staged bf16
+    tile); "high" (the SIMT tile) on gate_up and down at BLOCK32_NS and fed
+    K6's output at n = 16, 512."""
+    def plain8(w, x, prec, act_quant=False):
+        if act_quant:
+            x = fake_quantize_q8_1_plain(x)
+        return mmq_q8_0_plain(w, x, precision=prec)
 
-        def plain(x, prec, act_quant=False):
-            if act_quant:
-                x = fake_quantize_q8_1_plain(x)
-            if kernel == "mmq_q8_0":
-                return mmq_q8_0_plain(w, x, precision=prec)
-            return mmq_legacy_plain(w, x, precision=prec, fp16_bsum=act_quant)
+    def plain11(w, x, prec, act_quant=False):
+        if act_quant:
+            x = fake_quantize_q8_1_plain(x)
+        return mmq_legacy_plain(w, x, precision=prec, fp16_bsum=act_quant)
 
-        for n in BLOCK32_NS:
+    def bf16_cases(kernel, fn, plain, w, shape, ns, precs):
+        for n in ns:
             x = torch.randn((n, w.shape[1]), generator=gen,
                             device=DEVICE).bfloat16()
-            for prec in ("fast", "high"):
+            for prec in precs:
                 got = fn(w, x, precision=prec)
-                err, rel = rel_err(got, plain(x, prec))
+                err, rel = rel_err(got, plain(w, x, prec))
                 rep.add(kernel, f"{shape} n={n} {prec}", err, rel,
                         TOL_MMQ if prec == "fast" else TOL_HIGH,
                         lambda: fn(w, x, precision=prec),
-                        lambda: plain(x, prec),
+                        lambda: plain(w, x, prec),
                         work=_mmq_work(w, x, got,
                                        "bf16" if prec == "fast" else "f32"),
                         library=lambda: matmul_library(w, x))
+
+    def q8_1_cases(kernel, fn, plain, w, shape, modes):
         for n in (16, 512):
             x = _q8_1_input(gen, n, w.shape[1])
-            err, rel = rel_err(fn(w, x, precision="high", act_quant=True),
-                               plain(x, "high", act_quant=True))
-            rep.add(kernel, f"{shape} n={n} high act_quant", err, rel,
-                    TOL_HIGH)
+            for prec, act_quant in modes:
+                err, rel = rel_err(fn(w, x, precision=prec, act_quant=act_quant),
+                                   plain(w, x, prec, act_quant))
+                rep.add(kernel, f"{shape} n={n} {prec} "
+                        f"{'act_quant' if act_quant else 'f32'}", err, rel,
+                        TOL_MMQ if prec == "fast" else TOL_HIGH)
+
+    for label, w in [(key, layer8[key]) for key in
+                     ("wqkv", "wo", "gate_up", "down")] + [("head", head8)]:
+        shape = f"{label} {w.shape[0]}x{w.shape[1]}"
+        bf16_cases("mmq_q8_0", mmq_q8_0, plain8, w, shape, BLOCK32_NS,
+                   ("fast", "high"))
+        q8_1_cases("mmq_q8_0", mmq_q8_0, plain8, w, shape, (("high", True),))
+    for fmt, params in legacy.items():
+        layer = params["layers"][0]
+        for key, w in (("wqkv", layer["wqkv"]), ("gate_up", layer["gate_up"]),
+                       ("down", layer["down"]),
+                       ("head[:1000]",
+                        params["output"].take_rows(torch.arange(1000)))):
+            shape = f"{fmt} {key} {w.shape[0]}x{w.shape[1]}"
+            bf16_cases("mmq_legacy", mmq_legacy, plain11, w, shape, TC_NS,
+                       ("fast",))
+            modes = [("fast", False), ("fast", True)]
+            if key in ("gate_up", "down"):
+                bf16_cases("mmq_legacy", mmq_legacy, plain11, w, shape,
+                           BLOCK32_NS, ("high",))
+                modes.append(("high", True))
+            q8_1_cases("mmq_legacy", mmq_legacy, plain11, w, shape, modes)
 
 
 def compare_compat(seed: int, gen: torch.Generator, rep: Report,
@@ -1092,15 +1125,15 @@ def _terms_max(w: QuantWeight, x: torch.Tensor) -> float:
 
 def compare_lowbit(cases: list, gen: torch.Generator, rep: Report) -> None:
     """K12, K13 and K14 against their plain versions, `cases` listing
-    (kernel, label, weight): bf16 activations at BLOCK32_NS (both sides of
-    the n_pad <= 64 arm), for K12 and K14 at TC_NS (both sides of every
-    width of their tensor-core tiles; K12's arm follows its width), "fast"
-    (TOL_MMQ) and "high" (TOL_HIGH), timed; and K6's f32 output, as the
-    act_quant path feeds them, at n = 16 and 512 in both precisions."""
+    (kernel, label, weight): bf16 activations at TC_NS (both sides of every
+    width of their tensor-core tiles and of the n_pad <= 64 arm; K12's arm
+    follows its width), "fast" (TOL_MMQ) and "high" (TOL_HIGH), timed; and
+    K6's f32 output, as the act_quant path feeds them, at n = 16 and 512 in
+    both precisions."""
     for kernel, label, w in cases:
         fn, plain = LOWBIT[kernel]
         shape = f"{label}{w.shape[0]}x{w.shape[1]}"
-        for n in TC_NS if kernel in ("mmq_q2_k", "mmq_iq4") else BLOCK32_NS:
+        for n in TC_NS:
             x = torch.randn((n, w.shape[1]), generator=gen,
                             device=DEVICE).bfloat16()
             for prec in ("fast", "high"):
@@ -1454,7 +1487,8 @@ def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
 
 # kernel-name pieces by which device time is summed per source
 KERNEL_GROUPS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q5_k", "mmq_q6_k",
-                 "mmq_iq4", "add_splits", "to_bf16")
+                 "mmq_iq4", "mmq_q8_0", "mmq_q4_0", "mmq_q4_1", "mmq_q5_0",
+                 "mmq_q5_1", "add_splits", "to_bf16")
 
 
 def log_groups(kern: list, runs: int, unit: str) -> None:
@@ -1655,7 +1689,7 @@ def block32_paths(seed: int, writers: Writers, gen: torch.Generator,
     with phase("K10/K11 vs plain"):
         compare_block32(llms["q8_0"].params["layers"][0],
                         llms["q8_0"].params["output"],
-                        {fmt: llms[fmt].params["layers"][0]
+                        {fmt: llms[fmt].params
                          for fmt in ("q4_0", "q4_1", "q5_0", "q5_1")},
                         gen, rep)
         compare_compat(seed, gen, rep)
@@ -1668,12 +1702,17 @@ def block32_paths(seed: int, writers: Writers, gen: torch.Generator,
         launches["mmq_legacy"] = serve(
             llms["q4_0"], seed, Q4_0_KERNELS,
             forbidden=other_mmq(Q4_0_KERNELS))["mmq_legacy"]
-    with phase("Q8_0 and Q4_0 decode step"):
+    with phase("Q8_0 and Q4_0 decode step, Q4_0 prefill chunk"):
         tok, pos, gen_step = _step_inputs(seed)
         for fmt in ("q8_0", "q4_0"):
-            decode_split(llms[fmt], tok, pos, 256,
-                         f"TinyLlama {fmt} decode step, 16 slots, span 256",
-                         gen_step)
+            _, per_step = decode_split(
+                llms[fmt], tok, pos, 256,
+                f"TinyLlama {fmt} decode step, 16 slots, span 256", gen_step)
+            kernel = "mmq_q8_0" if fmt == "q8_0" else "mmq_legacy"
+            if per_step.get(kernel) != 4 * CFG.n_layers + 1:
+                raise AssertionError(f"{kernel} launches per decode step: "
+                                     f"{per_step}")
+        prefill_chunk(llms["q4_0"], _chunk_tokens(seed), 0, "TinyLlama Q4_0")
     with phase("reference checks of the five formats (2 layers)"):
         for fmt, llm in llms.items():
             log(f"-- {fmt}")
@@ -1749,7 +1788,8 @@ def _chunk_tokens(seed: int) -> np.ndarray:
 
 # `--mix-step` checkpoints: tag -> name in the log
 STEP_NAMES = {"q2k_mix": "TinyLlama Q2_K mix", "q5km": "TinyLlama Q5_K_M bf16",
-              "iq4_xs_2l": "TinyLlama IQ4_XS (2 layers)"}
+              "iq4_xs_2l": "TinyLlama IQ4_XS (2 layers)",
+              "q4_0": "TinyLlama Q4_0"}
 
 
 def mix_step(path: str, seed: int, name: str) -> None:
@@ -1800,7 +1840,9 @@ def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
                            head2.take_rows(torch.arange(1000)))]
                        + [("mmq_q2_k", f"mix {key} ", layer[key])
                           for key in ("wq", "wk")]
-                       + _lowbit_cases("mmq_q3_k", llms["q3_k"].params),
+                       + _lowbit_cases("mmq_q3_k", llms["q3_k"].params)
+                       + [("mmq_q3_k", f"mix {key} ", layer[key])
+                          for key in ("wo", "down")],
                        gen, rep)
         for fmt in ("q2_k", "q3_k"):
             compare_compat(seed, gen, rep, fmt, KQUANT_COMPAT_KS)

@@ -74,6 +74,8 @@ __device__ __forceinline__ void iq4_values(uint32_t v, uint32_t& lo, uint32_t& h
 
 // IQ4_NL: the four fp16 d of the chunk's 32-blocks
 struct NL {
+  using Small = uint2;
+  static constexpr bool CORR = false;   // symmetric: no correction term
   __device__ static uint2 small(const block32_tc::Fields& f, size_t m, int K, int c) {
     return *reinterpret_cast<const uint2*>(f.d + m * (K / 32) + 4 * c);
   }
@@ -81,12 +83,17 @@ struct NL {
     const uint32_t w = b < 2 ? v.x : v.y;
     return (b & 1) ? kquant::half_hi(w) : kquant::half_lo(w);
   }
-  __device__ static void values(uint32_t v, uint32_t& lo, uint32_t& hi) { iq4_values(v, lo, hi); }
+  __device__ static void values(uint32_t v, const uint2&, int, int, uint32_t& lo, uint32_t& hi) {
+    iq4_values(v, lo, hi);
+  }
+  __device__ static float corr(const uint2&, int) { return 0.f; }
 };
 
 // IQ4_XS: x = d | scales_h << 16 of the superblock, y = the two scales_l
 // bytes of the chunk's half superblock (sub-blocks 4 (c % 2) .. +3)
 struct XS {
+  using Small = uint2;
+  static constexpr bool CORR = false;
   __device__ static uint2 small(const block32_tc::Fields& f, size_t m, int K, int c) {
     const size_t sb = m * (K / 256) + (c >> 1);
     return make_uint2(f.d[sb] | static_cast<uint32_t>(f.scales_h[sb]) << 16,
@@ -98,7 +105,10 @@ struct XS {
                                     (((v.x >> (16 + 8 * (c & 1) + 2 * b)) & 3) << 4)) - 32;
     return __fmul_rn(kquant::half_lo(v.x), static_cast<float>(ls));
   }
-  __device__ static void values(uint32_t v, uint32_t& lo, uint32_t& hi) { iq4_values(v, lo, hi); }
+  __device__ static void values(uint32_t v, const uint2&, int, int, uint32_t& lo, uint32_t& hi) {
+    iq4_values(v, lo, hi);
+  }
+  __device__ static float corr(const uint2&, int) { return 0.f; }
 };
 
 template <class F, int BN, int WG>
@@ -193,7 +203,8 @@ extern "C" int mmq_iq4_tc_launch(const void* d, const void* scales_h, const void
   tc::launch_to_bf16(x, xb, N, K, K, x_bf16, 0, st);
   const block32_tc::Fields f{static_cast<const uint16_t*>(d),
                              static_cast<const uint16_t*>(scales_h),
-                             static_cast<const uint8_t*>(scales_l)};
+                             static_cast<const uint8_t*>(scales_l),
+                             nullptr, nullptr, nullptr, 0};
   const auto* qp = static_cast<const uint8_t*>(qs);
   auto* op = static_cast<float*>(out);
   auto* pp = static_cast<float*>(part);

@@ -185,17 +185,6 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE + 1024;
 };
 
-// the sum of the 8 bf16 values of a 16-byte piece, in f32
-__device__ __forceinline__ float bf16_sum8(const uint4& v) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-    s += __uint_as_float(w << 16) + __uint_as_float(w & 0xFFFF0000u);
-  }
-  return s;
-}
-
 template <int BN, int WG>
 __global__ void __launch_bounds__(NTHREADS * WG)
 mmq_q2_k_tc(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tqs,

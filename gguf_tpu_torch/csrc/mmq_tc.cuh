@@ -1,9 +1,10 @@
 // The tensor-core MMQ tiles of K1 and K8 under "fast" (kquant_tc.cuh, for
 // mmq_q4_k.cu and mmq_q5_k.cu) and K7 (mmq_i8.cu) over Q4_K / Q5_K
 // superblocks as stored in GGUF (kquant.cuh), and of K2 (mmq_q6_k.cu), K12
-// (mmq_q2_k.cu) and K14 (block32_tc.cuh, for mmq_iq4.cu) under "fast" over
-// the per-field arrays of Q6_K / Q2_K / IQ4 (KH-element chunks, their
-// notes say how): TMA copies of the weight bytes into a ring of shared-memory
+// (mmq_q2_k.cu), K13 (mmq_q3_k.cu), K14 and K11 (block32_tc.cuh, for
+// mmq_iq4.cu and mmq_legacy.cu) under "fast" over the per-field arrays of
+// Q6_K / Q2_K / Q3_K / IQ4 / Q4_0..Q5_1 (KH-element chunks, their notes
+// say how): TMA copies of the weight bytes into a ring of shared-memory
 // stages, each completing on its stage's mbarrier, the A fragments decoded
 // from those bytes in registers, and the bf16 wgmma instructions with A
 // from registers.
@@ -38,7 +39,7 @@ namespace tc {
 
 constexpr int BM = 64;         // weight rows per warpgroup
 constexpr int KC = 64;         // K elements per nibble run
-constexpr int KH = 2 * KC;     // K elements per chunk of K2 and K12: half a superblock
+constexpr int KH = 2 * KC;     // K elements per chunk of K2, K11-K14: half a superblock
 constexpr int NTHREADS = 128;  // four warps: one warpgroup
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -162,6 +163,18 @@ __device__ __forceinline__ float fold(float s, float z, float q) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// the sum of the 8 bf16 values of a 16-byte piece, in f32 (the block sums
+// of K11's correction and K12's min term, from a staged x tile)
+__device__ __forceinline__ float bf16_sum8(const uint4& v) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+    s += __uint_as_float(w << 16) + __uint_as_float(w & 0xFFFF0000u);
+  }
+  return s;
 }
 
 // ------------------------------------------------- the bf16 activations ---

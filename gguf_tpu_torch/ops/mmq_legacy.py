@@ -4,9 +4,10 @@ Q4_1, Q5_0 and Q5_1: kernel K11 and its plain version.
 C = (A @ B.T).T for weights A (M, K), K a multiple of 256, and float
 activations B (N, K): output (N, M) float32. Counterpart of
 `gguf_tpu/ops/mmq_legacy.py` (`mmq_q4_0` .. `mmq_q5_1`, Pallas `_kernel`);
-the CUDA source is `gguf_tpu_torch/csrc/mmq_legacy.cu`, one kernel with
-the format as a template parameter, over the tile in `csrc/block32.cuh`
-shared with K10 (`mmq_q8_0`).
+the CUDA source is `gguf_tpu_torch/csrc/mmq_legacy.cu`: "fast" runs its
+bf16 tensor-core tile (`csrc/block32_tc.cuh`, a policy per format,
+128-element chunks, split as `tc_plan` says), "high" the SIMT f32 tile of
+`csrc/block32.cuh` shared with K10 (`mmq_q8_0`).
 
 The product is split as the reference splits it, which under "fast" is
 not dequantize-then-matmul: with q the raw 4- or 5-bit code (before the
@@ -41,11 +42,12 @@ import torch
 from ..quant.layouts import LEGACY, QuantWeight, legacy_offset, legacy_parts
 from . import build
 from .activation import fake_quant_2d
-from .mmq_q4_k import check_operands, check_precision, matmul_plain
+from .mmq_q4_k import check_operands, check_precision, launch_tc, matmul_plain
 from .mmq_q8_0 import format_wrapper, launch_split_k
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"mmq_legacy_launch": [_VP] * 7 + [_I] * 9 + [_VP]}
+_SIG = {"mmq_legacy_launch": [_VP] * 7 + [_I] * 9 + [_VP],
+        "mmq_legacy_tc_launch": [_VP] * 9 + [_I] * 8 + [_VP]}
 FMT_CODES = {"q4_0": 1, "q4_1": 2, "q5_0": 3, "q5_1": 4}   # csrc/block32.cuh
 
 
@@ -88,11 +90,27 @@ def mmq_legacy(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
                                 fp16_bsum=act_quant)
     if b.device.type != "cuda":
         raise ValueError(f"mmq_legacy runs on cpu or cuda, not {b.device}")
+    return _launch(w, b, precision, act_quant)
+
+
+def _launch(w: QuantWeight, b: torch.Tensor, precision: str,
+            fp16_bsum: bool) -> torch.Tensor:
+    """K11 on validated CUDA operands: the tensor-core tile under "fast"
+    (its block sums from the staged bf16 tile, or from the pass that
+    rounds an f32 operand), the SIMT tile under "high"."""
     f = w.fields
-    out = launch_split_k(
-        _lib().mmq_legacy_launch, w, b,
-        [(f["d"], 2), (f.get("m"), 2), (f.get("qh"), 4), (f["qs"], 16)],
-        (FMT_CODES[w.fmt], int(act_quant)), precision, "mmq_legacy")
+    codes = (FMT_CODES[w.fmt], int(fp16_bsum))
+    if precision == "fast":
+        # a chunk's four d (or m) are one 8-byte load, its four qh 16 bytes
+        out = launch_tc(_lib().mmq_legacy_tc_launch, w, b,
+                        [(f["d"], 8), (f.get("m"), 8), (f.get("qh"), 16),
+                         (f["qs"], 16)], "mmq_legacy", extra=codes,
+                        bsum=True)
+    else:
+        out = launch_split_k(
+            _lib().mmq_legacy_launch, w, b,
+            [(f["d"], 2), (f.get("m"), 2), (f.get("qh"), 4), (f["qs"], 16)],
+            codes, precision, "mmq_legacy")
     if b.shape[0]:
         mmq_legacy.launches += 1
     return out

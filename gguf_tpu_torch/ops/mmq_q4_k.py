@@ -12,7 +12,8 @@ over the TMA-fed tile of `csrc/mmq_tc.cuh`; K1 "high" runs the SIMT f32
 tile of `csrc/kquant.cuh`; K8 (`mmq_q5_k`) runs both tiles too. Their
 wrappers pick the split of K (`k1_plan`, `split_k`) and allocate its
 scratch; `launch_tc` does the same for the "fast" tensor-core tiles of K2
-(`mmq_q6_k`), K8, K12 (`mmq_q2_k`) and K14 (`mmq_iq4`).
+(`mmq_q6_k`), K8, K11 (`mmq_legacy`), K12 (`mmq_q2_k`), K13 (`mmq_q3_k`)
+and K14 (`mmq_iq4`).
 
 `precision="fast"` rounds both operands to bf16 before the f32-accumulated
 product (the TPU's single-pass bf16 MXU contract); "high" keeps f32.
@@ -68,16 +69,17 @@ def tc_tile(n: int) -> tuple:
         (64, 64) if n <= 64 else (128, 128)
 
 
+@functools.lru_cache(maxsize=4096)
 def split_k(m: int, n: int, k: int, sms: int, tile: tuple | None = None,
             per_sm: int = 2, kt: int = KT) -> tuple:
-    """How the split-K kernels (K1, K2, K8, K12 and K14 "fast", K7,
+    """How the split-K kernels (K1, K2, K8 and K11-K14 "fast", K7,
     K10-K14) cut K across the grid's z axis: (splits, K steps of `kt` per
     split), for a tile of (rows, width) = `tile`, by default (BM, 8, 16 or
     64 from n). Enough blocks for `per_sm` per SM when M and N give too
     few (decode widths at M = 2048: 32 blocks), at most MAX_SPLITS; the
     partial sums are then added in split order by a second launch, so the
     result does not depend on the schedule (`k1_plan` asks for 4 per SM
-    at decode widths)."""
+    at decode widths). Cached per shape: every call of a wrapper asks."""
     bm, bn = tile or (BM, 8 if n <= 8 else 16 if n <= 16 else 64)
     steps = -(-k // kt)
     blocks = -(-m // bm) * -(-n // bn)
@@ -96,8 +98,8 @@ def split_scratch(splits: int, n: int, m: int,
 
 
 def tc_plan(m: int, n: int, k: int, sms: int) -> tuple:
-    """(splits, chunks per split) of K2's, K12's and K14's "fast"
-    tensor-core tiles (KH-element chunks, the tile `tc_tile(n)`), 2 blocks
+    """(splits, chunks per split) of the "fast" tensor-core tiles of K2 and
+    K11-K14 (KH-element chunks, the tile `tc_tile(n)`), 2 blocks
     per SM asked at every width: the 32000-row head (500 row blocks) is not
     split, where 4 per SM would split it in two and add a partial-sum
     pass."""
@@ -113,13 +115,16 @@ def k1_plan(m: int, n: int, k: int, sms: int) -> tuple:
 
 
 def launch_tc(fn, w: QuantWeight, b: torch.Tensor, fields: list,
-              what: str, extra: tuple = (), plan=tc_plan) -> torch.Tensor:
-    """Launch a "fast" tensor-core tile (K2, K8, K12, K14) on validated
-    CUDA operands: `fn(*fields, x, xb, out, part, *extra, M, N, K, x_bf16,
-    splits, chunks_per_split, stream)`, `fields` listing (tensor or None
-    where the format has no such field, the byte alignment its loads need:
-    16 for a TMA box), K split as `plan(M, N, K, SMs)` says. The kernel
-    takes a bf16 (N, K) operand: b itself, or scratch it fills first."""
+              what: str, extra: tuple = (), plan=tc_plan,
+              bsum: bool = False) -> torch.Tensor:
+    """Launch a "fast" tensor-core tile (K2, K8, K11-K14) on validated CUDA
+    operands: `fn(*fields, x, xb, [bsum,] out, part, *extra, M, N, K,
+    x_bf16, splits, chunks_per_split, stream)`, `fields` listing (tensor or
+    None where the format has no such field, the byte alignment its loads
+    need: 16 for a TMA box), K split as `plan(M, N, K, SMs)` says. The
+    kernel takes a bf16 (N, K) operand: b itself, or scratch it fills
+    first; with `bsum` (K11's correction term) also (N, K/32) f32 scratch
+    for the sums of b's blocks when it fills that operand, else None."""
     (m, k), n = w.shape, b.shape[0]
     b = b.contiguous()
     if any(f is not None and (not f.is_contiguous() or f.data_ptr() % a)
@@ -133,8 +138,12 @@ def launch_tc(fn, w: QuantWeight, b: torch.Tensor, fields: list,
     direct = b.dtype == torch.bfloat16 and b.data_ptr() % 16 == 0
     xb = b if direct else torch.empty((n, k), dtype=torch.bfloat16,
                                       device=b.device)
+    sums = torch.empty((n, k // 32), dtype=torch.float32, device=b.device) \
+        if bsum and not direct else None
     err = fn(*(None if f is None else build.ptr(f) for f, _ in fields),
-             build.ptr(b), build.ptr(xb), build.ptr(out),
+             build.ptr(b), build.ptr(xb),
+             *((None if sums is None else build.ptr(sums),) if bsum else ()),
+             build.ptr(out),
              build.ptr(split_scratch(splits, n, m, out)), *extra, m, n, k,
              int(b.dtype == torch.bfloat16), splits, per, build.stream_ptr())
     build.check(err, what)

@@ -3,7 +3,10 @@ quantizers byte-identical to `gguf_tpu.quant`, `QuantWeight.dequantize()`
 bit-equal to `QuantTensor.dequantize()`, the plain versions of K12
 (`mmq_q2_k`) and K13 (`mmq_q3_k`) against the Pallas kernels in interpret
 mode in both width arms and against the byte-level goldens, the Q2_K arm
-choice pinned, and `gguf_tpu_torch.compat` against `gguf_tpu.compat`."""
+choice pinned, and `gguf_tpu_torch.compat` against `gguf_tpu.compat`;
+K13's tensor-core decode run in numpy, and its CUDA dispatch pinned."""
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,9 +20,9 @@ from gguf_tpu.quant import quantize_q8_1
 from gguf_tpu.quant.layouts import to_soa
 from gguf_tpu.utils import allclose_rel, max_rel_err
 from gguf_tpu_torch import compat
-from gguf_tpu_torch.ops import MMQ, mmq_q2_k, mmq_q3_k
+from gguf_tpu_torch.ops import MMQ, build, mmq_q2_k, mmq_q3_k
 from gguf_tpu_torch.ops.mmq_q2_k import mmq_q2_k_plain, split_arm
-from gguf_tpu_torch.ops.mmq_q4_k import tc_tile
+from gguf_tpu_torch.ops.mmq_q4_k import tc_plan, tc_tile
 from gguf_tpu_torch.quant import QUANTIZERS, QuantWeight, concat_m
 
 FORMATS = ("q2_k", "q3_k")
@@ -226,3 +229,120 @@ def test_operand_checks_and_launch_counters():
             assert fn(w, torch.ones(3, 256), **kw).shape == (3, 16)
     assert (mmq_q2_k.launches, mmq_q3_k.launches) == before
     assert MMQ["q2_k"] is mmq_q2_k and MMQ["q3_k"] is mmq_q3_k
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint64 arrays holding 32-bit words: result
+    byte i is byte (s >> 4i) & 7 of y:x."""
+    x, y, s = (np.asarray(v, np.uint64) for v in (x, y, s))
+    xy = x | (y << np.uint64(32))
+    out = np.zeros(np.broadcast(x, y, s).shape, np.uint64)
+    for i in range(4):
+        sel = (s >> np.uint64(4 * i)) & np.uint64(7)
+        out |= ((xy >> (np.uint64(8) * sel)) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out
+
+
+def _bytes_of(words):
+    """(..., ) uint64 words -> (..., 4) uint8 bytes, little-endian."""
+    return ((words[..., None] >> (np.uint64(8) * np.arange(4, dtype=np.uint64)))
+            & np.uint64(0xFF)).astype(np.uint8)
+
+
+def test_q3_k_tensor_core_decode_matches_dequantize():
+    """K13's tensor-core tile (csrc/mmq_q3_k.cu: mmq_q3_k_tc), run in numpy:
+    per chunk h of a superblock, k16 step k and lane t, K1's byte permute
+    of the chunk's qs bytes and of the superblock's hmask bytes (the same
+    words for both chunks), crumb k/2 and hmask bit 4h + k/2, the int8
+    value q - 4 (0xFC ORed in where the bit is clear), and d * sc from the
+    scale bytes decoded four at a time, give `QuantWeight.dequantize()`
+    bit for bit at elements 16k + (2t, 2t+1, 2t+8, 2t+9) of the chunk."""
+    m, k = 4, 512
+    rng = np.random.default_rng(11)
+    nb = k // 256
+    raw = rng.integers(0, 256, (m, nb, 110), dtype=np.uint8)
+    raw[:, :, 108:110] = rng.uniform(-1, 1, (m, nb, 1)).astype(
+        np.float16).view(np.uint8)
+    w = QuantWeight.from_blocks("q3_k", raw.reshape(m, -1), (m, k), "cpu")
+    want = w.dequantize().numpy().reshape(m, nb, 2, 128)
+    f = {n: t.numpy().reshape(m, nb, -1) for n, t in w.fields.items()}
+    words = lambda b: b.copy().view(np.uint32).astype(np.uint64)
+    qs, hm = words(f["qs"]), words(f["hmask"])             # (m, nb, 16), 8
+    sc = words(f["scales"])                                  # (m, nb, 3)
+    d = f["d"].copy().view(np.float16).astype(np.float32)[..., 0]
+    for h in range(2):
+        lo = [(sc[..., i] >> np.uint64(4 * h)) & np.uint64(0x0F0F0F0F)
+              for i in (0, 1)]
+        hi = [((sc[..., 2] >> np.uint64(4 * h + 2 * i)) & np.uint64(0x03030303))
+              << np.uint64(4) for i in (0, 1)]
+        scale = [d[..., None] * (_bytes_of(lo[i] | hi[i]).astype(np.float32)
+                                 - np.float32(32)) for i in (0, 1)]
+        scale = np.concatenate(scale, axis=-1)              # (m, nb, 8)
+        for t in range(4):
+            sel = 0x7632 if t & 1 else 0x5410
+            for q in range(2):   # half q of the chunk's 32 bytes: words 4q..
+                a, b = 4 * q + (t >> 1), 4 * q + (t >> 1) + 2
+                v = _byte_perm(qs[..., 8 * h + a], qs[..., 8 * h + b], sel)
+                hv = _byte_perm(hm[..., a], hm[..., b], sel)
+                for kk in range(q, 8, 2):   # the k16 steps of half q
+                    j = kk >> 1
+                    crumbs = (v >> np.uint64(2 * j)) & np.uint64(0x03030303)
+                    hbit = (hv >> np.uint64(4 * h + j)) & np.uint64(0x01010101)
+                    val = crumbs | ((hbit ^ np.uint64(0x01010101))
+                                    * np.uint64(0xFC))
+                    got = scale[..., kk, None] * _bytes_of(val).view(
+                        np.int8).astype(np.float32)
+                    elems = 16 * kk + np.array([2 * t, 2 * t + 1, 2 * t + 8,
+                                                2 * t + 9])
+                    np.testing.assert_array_equal(got, want[:, :, h, elems])
+
+
+class _FakeLib:
+    """A C library whose entry points record their arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+# the Q2_K mix's Q3_K weights (wo, down) and a uniform Q3_K file's
+# gate_up, wqkv and head at TinyLlama's widths
+Q3_K_SHAPES = [(2048, 2048), (2048, 5632), (11264, 2048), (2560, 2048),
+               (32000, 2048)]
+
+
+@pytest.mark.parametrize("precision", ["fast", "high"])
+def test_q3_k_cuda_dispatch(monkeypatch, precision):
+    """On a CUDA tensor K13 "fast" launches the tensor-core entry
+    (mmq_q3_k_tc_launch) with `tc_plan`'s split at the TinyLlama shapes;
+    "high" launches the SIMT entry (mmq_q3_k_launch) alone."""
+    mod = importlib.import_module("gguf_tpu_torch.ops.mmq_q3_k")
+    lib = _FakeLib()
+    monkeypatch.setattr(mod, "_lib", lambda: lib)
+    for name in ("mmq_q4_k", "mmq_q8_0"):   # launch_tc's, launch_split_k's
+        monkeypatch.setattr(importlib.import_module(f"gguf_tpu_torch.ops.{name}"),
+                            "sm_count", lambda index: 132)
+    monkeypatch.setattr(build, "stream_ptr", lambda: None)
+    for m, k in Q3_K_SHAPES:
+        w = QuantWeight.from_blocks(
+            "q3_k", np.zeros((m, k // 256 * 110), np.uint8), (m, k), "cpu")
+        for n in (1, 16, 512):
+            for dtype in (torch.bfloat16, torch.float32):
+                lib.calls.clear()
+                out = mod._launch(w, torch.zeros((n, k), dtype=dtype),
+                                  precision)
+                assert out.shape == (n, m) and len(lib.calls) == 1
+                name, args = lib.calls[0]
+                x_bf16 = int(dtype == torch.bfloat16)
+                if precision == "high":
+                    assert name == "mmq_q3_k_launch"
+                    assert args[7:11] == (m, n, k, x_bf16)
+                    continue
+                assert name == "mmq_q3_k_tc_launch"
+                assert args[8:] == (m, n, k, x_bf16, *tc_plan(m, n, k, 132),
+                                    None)
