@@ -16,7 +16,11 @@ every kernel's launch counter reset just before it and read just after:
 
 Q4_K_M with bf16 activations (kernels K1-K4):
 1. holds K1-K4 against their plain PyTorch versions on the card, at the
-   shapes the serving path gives them, timing both with CUDA events: K1
+   shapes the serving path gives them, timing both with CUDA events (K4,
+   one cluster launch per call, "fast" and "high", at random positions and
+   at pos 0, pos = span - t and an inactive slot, read-only, with window
+   and softcap, and with the fused t = 1 insert, the cache bit-equal; and
+   where a CTA walks its keys in tiles, 192 query heads at span 8192): K1
    (tensor cores under "fast") at n = 1, 8, 9, 16, 17, 64, 65 and 512, both
    sides of each of its tile widths, on every projection and on 256- and
    1000-row slices of wqkv (M below one row block, M not a multiple of
@@ -59,20 +63,22 @@ precision="high")` (kernels K2-K8):
 The 32-element-block formats (kernels K10 `mmq_q8_0` and K11
 `mmq_legacy`, with K3, K4 and, under act_quant, K6):
 8. holds K10 against its plain version at every TinyLlama projection and
-   the head, n = 1, 16, 64, 65, 512, "fast" (1e-3 of max|ref|) and "high"
-   (1e-5), on bf16 activations and fed K6's output; K11 for Q4_0, Q4_1,
+   the head: "fast" (tensor cores, 1e-3 of max|ref|) at the widths of 1.
+   on bf16 activations and at n = 16, 512 on f32 ones as given and as K6's
+   output; "high" (1e-5) at n = 1, 16, 64, 65, 512 and fed K6's output;
+   K11 for Q4_0, Q4_1,
    Q5_0 and Q5_1 on wqkv, gate_up, down and the head's first 1000 rows:
    "fast" (tensor cores, 1e-3) at the widths of 1., and at n = 16 and 512
    on f32 activations as given and as K6's output with fp16 block sums;
    "high" (1e-5) on gate_up and down at n = 1, 16, 64, 65, 512 and fed
    K6's output; K10 through `compat.mmq_q8_0` at M, N in {1, 4, 16} and
-   K = 32, 64, 96, 128;
+   K = 32, 64, 96, 128, "high" and "fast" (a ragged tensor-core chunk);
 9. serves the 24 prompts through the 22-layer Q8_0 and then the Q4_0
    checkpoint (bf16 activations), requiring launches of K10 (then K11),
    K3 and K4 and none of K1, K2, K7 or K8, then splits a 16-slot decode
    step of each at span 256 (host clock and `torch.profiler`; 89 K10 or
-   K11 launches per step required) and times a Q4_0 512-token prefill
-   chunk;
+   K11 launches and 22 K4 launches per step required) and times a Q4_0
+   512-token prefill chunk;
 10. checks 2 layers of each of the five formats against the CPU run
    (logits within 1e-2), and for Q8_0 and Q5_1 every projection of a
    16- and a 64-token act_quant prefill as in 6 (routes K6+K10, K6+K11).
@@ -119,8 +125,9 @@ Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
    tokens: prefill crosses every span bucket, decode runs at span 4096 on
    K3 + K9), every logit finite;
 13. times a 16-slot decode step at span 512 and at span 4096 (host clock
-   and `torch.profiler`: device time, K9 per layer beside its bound) and
-   a 512-token prefill chunk;
+   and `torch.profiler`: device time, K9 per layer beside its bound; 32
+   K4 launches per step at span 512 required) and a 512-token prefill
+   chunk;
 14. checks 2 layers against the CPU run of the same port: the logits of a
    16-token prefill, then a 2,100-token prefill on the card whose cache
    is copied to the CPU, and one t = 1 and one t = 8 step at span 4096 on
@@ -130,16 +137,18 @@ Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 `--profile` instead splits a 16-slot decode step of the Q5_K_M
 checkpoint with bf16 activations and under act_quant (host clock and
 `torch.profiler`), and checks nothing. `--mix-step [q2k_mix|q5km|
-iq4_xs_2l|q4_0]` instead splits that checkpoint's decode step with bf16
-activations (twice; the Q2_K mix by default) and times its 512-token
-prefill chunk, as b. does, and checks nothing; copied beside an earlier
-tree of the port it measures that tree, so two trees compare in one
-call.
+iq4_xs_2l|q4_0|q8_0|q4km]` instead splits that checkpoint's decode step
+with bf16 activations (twice; the Q2_K mix by default) and times its
+512-token prefill chunk, as b. does, and checks nothing; copied beside an
+earlier tree of the port it measures that tree, so two trees compare in
+one call.
 
 Prints the card's name and power limit, a per-shape table, seconds per
 phase and in total, one JSON line {"kernels": [...]} (per kernel its
 headline shape's times, its bound from this run's inputs and, where one
-PyTorch call computes the same function, that call's time) and, last,
+PyTorch call computes the same function, that call's time, and the same
+at a second shape: n = 512 for the tensor-core MMQ kernels, the 7B
+geometry for K4) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits nonzero. Needs one CUDA device, nvcc and gcc.
 """
@@ -346,15 +355,20 @@ HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
             "mmq_q3_k": "gate_up 11264x2048 n=16 fast",
             "mmq_iq4": "iq4_xs gate_up 11264x2048 n=16 fast",
             "rms_norm": "n=16 d=2048 bf16"}
-# the prefill-width shape of each tensor-core MMQ kernel, timed beside its
-# bound and its library call as the headline is
+# a kernel's second shape, timed beside its bound and its library call as
+# the headline is, under its key in the {"kernels": ...} line: the prefill
+# width of each tensor-core MMQ kernel ("wide") and K4 at the 7B geometry
+# ("7b")
 WIDE = {"mmq_q4_k": "gate_up 11264x2048 n=512",
         "mmq_q6_k": "head 32000x2048 n=512",
         "mmq_q5_k": "gate_up 11264x2048 n=512 fast",
+        "mmq_q8_0": "gate_up 11264x2048 n=512 fast",
         "mmq_legacy": "q4_0 gate_up 11264x2048 n=512 fast",
         "mmq_q2_k": "gate_up 11264x2048 n=512 fast",
         "mmq_q3_k": "gate_up 11264x2048 n=512 fast",
         "mmq_iq4": "iq4_xs gate_up 11264x2048 n=512 fast"}
+SECOND = {**{k: ("wide", v) for k, v in WIDE.items()},
+          "decode_attention": ("7b", "kvh32 hd128 b16 t=1 span=512 insert")}
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): a kernel's bound
 # is the larger of its bytes over HBM_BPS and its operations over the peak
 # of their type
@@ -440,19 +454,19 @@ def live_rows(pos: torch.Tensor, span: int) -> int:
 
 class Report:
     """Per-kernel worst error; the headline shape's times, bound and
-    library yardstick, and those of the WIDE shape."""
+    library yardstick, and those of the SECOND shape."""
 
     def __init__(self):
         self.err = {k: 0.0 for k in KERNELS}
         self.times = {}
         self.bound = {}
         self.library = {}
-        self.wide = {}
+        self.second = {}
 
     def add(self, kernel, shape, err, rel, tol, fn=None, plain_fn=None,
             work=None, library=None):
         """Record one check; time fn (the kernel) and plain_fn with CUDA
-        events, and at the headline and WIDE shapes also by profiler device
+        events, and at the headline and SECOND shapes also by profiler device
         time, with the bound from `work` = (bytes, operations, their type)
         and the time of the call that `library()` returns, one PyTorch call
         computing the same function (or None)."""
@@ -461,7 +475,8 @@ class Report:
         if ok and fn is not None:
             ms, pms = cuda_ms(fn), cuda_ms(plain_fn, iters=5)
             times = f"{ms:.4f} ms vs plain {pms:.4f} ms"
-            if shape in (HEADLINE[kernel], WIDE.get(kernel)):
+            second = SECOND.get(kernel, (None, None))
+            if shape in (HEADLINE[kernel], second[1]):
                 dms, pdms = device_ms(fn), device_ms(plain_fn)
                 bound = bound_ms(*work)
                 lib_ms = None if library is None else cuda_ms(library())
@@ -469,7 +484,7 @@ class Report:
                     self.times[kernel] = (ms, pms, dms, pdms)
                     self.bound[kernel], self.library[kernel] = bound, lib_ms
                 else:
-                    self.wide[kernel] = {
+                    self.second[kernel] = second[0], {
                         "shape": shape, "ms": ms, "device_ms": dms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib_ms}
@@ -738,9 +753,13 @@ def _attn_work(q, kn, cache, pos, span: int, t: int, insert: bool) -> tuple:
 def compare_attention(gen: torch.Generator, rep: Report, *, h: int,
                       kvh: int, hd: int, s: int, spans: tuple,
                       tag: str = "") -> None:
-    """K3 bit-equal to its plain version and K4 (read-only, window +
-    softcap, and with the fused t = 1 insert) within TOL_ATTN, at 16
-    slots over an (s)-row cache; `tag` prefixes the shape names."""
+    """K3 bit-equal to its plain version and K4 within TOL_ATTN, at 16 slots
+    over an (s)-row cache: read-only and (t = 1) with the fused insert (the
+    cache then bit-equal to K3's plain version), "fast" on bf16 queries and
+    "high" on f32 ones, at random positions (timed) and at the edges (pos
+    0, pos = span - t and an inactive slot at pos = s, which reads the whole
+    span and writes nothing), with window + softcap at span 512; `tag`
+    prefixes the shape names."""
     b = MAX_BATCH
     for t in ATTN_TS:
         cache = _random_cache(gen, b, kvh, s, hd)
@@ -763,50 +782,83 @@ def compare_attention(gen: torch.Generator, rep: Report, *, h: int,
                 work=(nbytes(kn, vn, pos) + written, 0.0, "f32"))
 
         for span in spans:
-            q = torch.randn((b, h, t, hd), generator=gen, device=DEVICE).bfloat16()
+            q16 = torch.randn((b, h, t, hd), generator=gen, device=DEVICE).bfloat16()
             p = torch.randint(0, span - t + 1, (b,), generator=gen,
                               device=DEVICE, dtype=torch.int32)
-            kw = dict(t=t, precision="fast", span=span)
-            out = decode_attention(q, *cache, p, **kw)
-            ref_out = decode_attention_plain(q, *cache, p, **kw)
-            err, rel = rel_err(out, ref_out)
-            rep.add("decode_attention", f"{tag}b{b} t={t} span={span}", err,
-                    rel, TOL_ATTN, lambda: decode_attention(q, *cache, p, **kw),
-                    lambda: decode_attention_plain(q, *cache, p, **kw),
-                    work=_attn_work(q, kn, cache, p, span, t, False))
-            if span == 512:
-                # sliding window and softcap: no ported family uses them
-                # yet, so they are checked here and not timed
-                wkw = dict(kw, window=64, softcap=2.0)
-                err, rel = rel_err(decode_attention(q, *cache, p, **wkw),
-                                   decode_attention_plain(q, *cache, p, **wkw))
-                rep.add("decode_attention",
-                        f"{tag}b{b} t={t} span={span} window+softcap", err,
-                        rel, TOL_ATTN)
-            if t != 1:
-                continue
-            # the fused t = 1 insert + attend, as every decode step runs it
-            kn1, vn1 = kn[:, :, :1], vn[:, :, :1]
-            got = [c.clone() for c in cache]
-            ref = [c.clone() for c in cache]
-            out = decode_attention_update(q, kn1, vn1, *got, p, **kw)[0]
-            kv_cache_insert_plain(kn1, vn1, *ref, p)
-            ref_out = decode_attention_plain(q, *ref, p, **kw)
-            for g, r in zip(got, ref):
-                if not torch.equal(g, r):
-                    raise AssertionError("decode_attention insert: cache differs")
-            err, rel = rel_err(out, ref_out)
+            q32 = torch.randn((b, h, t, hd), generator=gen, device=DEVICE)
+            edges = p.clone()
+            edges[0], edges[1], edges[-1] = 0, span - t, s
+            for prec, q in (("fast", q16), ("high", q32)):
+                for pp, where in ((p, ""), (edges, " edges")):
+                    attention_case(rep, q, kn, vn, cache, pp, t, span, prec,
+                                   f"{tag}b{b} t={t} span={span}{where}",
+                                   timed=pp is p)
 
-            def plain_update():
-                kv_cache_insert_plain(kn1, vn1, *ref, p)
-                return decode_attention_plain(q, *ref, p, **kw)
 
-            rep.add("decode_attention", f"{tag}b{b} t=1 span={span} insert",
-                    err, rel, TOL_ATTN,
-                    lambda: decode_attention_update(q, kn1, vn1, *got, p, **kw),
-                    plain_update,
-                    work=_attn_work(q, kn1, cache, p, span, 1, True),
-                    library=lambda: sdpa_library(q, ref, p, span, "fast"))
+def attention_case(rep: Report, q, kn, vn, cache, p, t: int, span: int,
+                   prec: str, shape: str, timed: bool) -> None:
+    """One K4 case of `compare_attention`: read-only, with window 64 and
+    softcap 2.0 at span 512 (no ported family uses them yet), and at t = 1
+    with the fused insert; times the read-only and the insert form at
+    random positions ("fast": the headline and its SDPA yardstick)."""
+    kw = dict(t=t, precision=prec, span=span)
+    suffix = "" if prec == "fast" else " high"
+    err, rel = rel_err(decode_attention(q, *cache, p, **kw),
+                       decode_attention_plain(q, *cache, p, **kw))
+    rep.add("decode_attention", shape + suffix, err, rel, TOL_ATTN,
+            *((lambda: decode_attention(q, *cache, p, **kw),
+               lambda: decode_attention_plain(q, *cache, p, **kw))
+              if timed else ()),
+            work=_attn_work(q, kn, cache, p, span, t, False))
+    if span == 512:
+        wkw = dict(kw, window=64, softcap=2.0)
+        err, rel = rel_err(decode_attention(q, *cache, p, **wkw),
+                           decode_attention_plain(q, *cache, p, **wkw))
+        rep.add("decode_attention", f"{shape} window+softcap{suffix}", err,
+                rel, TOL_ATTN)
+    if t != 1:
+        return
+    # the fused t = 1 insert + attend, as every decode step runs it
+    kn1, vn1 = kn[:, :, :1], vn[:, :, :1]
+    got = [c.clone() for c in cache]
+    ref = [c.clone() for c in cache]
+    out = decode_attention_update(q, kn1, vn1, *got, p, **kw)[0]
+    kv_cache_insert_plain(kn1, vn1, *ref, p)
+    ref_out = decode_attention_plain(q, *ref, p, **kw)
+    for g, r in zip(got, ref):
+        if not torch.equal(g, r):
+            raise AssertionError(f"decode_attention {shape} insert: cache "
+                                 "differs")
+    err, rel = rel_err(out, ref_out)
+
+    def plain_update():
+        kv_cache_insert_plain(kn1, vn1, *ref, p)
+        return decode_attention_plain(q, *ref, p, **kw)
+
+    rep.add("decode_attention", f"{shape} insert{suffix}", err, rel, TOL_ATTN,
+            *((lambda: decode_attention_update(q, kn1, vn1, *got, p, **kw),
+               plain_update) if timed else ()),
+            work=_attn_work(q, kn1, cache, p, span, 1, True),
+            library=lambda: sdpa_library(q, ref, p, span, prec))
+
+
+def compare_attention_tiles(gen: torch.Generator, rep: Report) -> None:
+    """K4 where a CTA's scores outgrow its shared memory, so it walks its
+    range in `k4_plan`'s tiles and scores each again in the later passes
+    (never on the model's routes): 192 query heads of 64 over one KV head
+    (the wrapper's 48 KiB query tile) at span 8192, within the single-tile
+    envelope; a slot at pos 5000 and an inactive one; "fast" and "high"
+    within TOL_ATTN."""
+    b, h, hd, s = 2, 192, 64, 8192
+    cache = _random_cache(gen, b, 1, s, hd)
+    pos = torch.tensor([5000, s], dtype=torch.int32, device=DEVICE)
+    for prec in ("fast", "high"):
+        q = torch.randn((b, h, 1, hd), generator=gen, device=DEVICE)
+        kw = dict(t=1, precision=prec, span=s)
+        err, rel = rel_err(decode_attention(q, *cache, pos, **kw),
+                           decode_attention_plain(q, *cache, pos, **kw))
+        rep.add("decode_attention", f"b2 h192 kvh1 hd64 t=1 span={s} tiles "
+                f"{prec}", err, rel, TOL_ATTN)
 
 
 def _tiled_positions(gen: torch.Generator, b: int, s: int) -> torch.Tensor:
@@ -1010,8 +1062,10 @@ def compare_head_act_quant(params5: dict, gen: torch.Generator,
 def compare_block32(layer8: dict, head8, legacy: dict,
                     gen: torch.Generator, rep: Report) -> None:
     """K10 at every TinyLlama projection and the head of the Q8_0
-    checkpoint against its plain version: bf16 activations at BLOCK32_NS,
-    "fast" and "high", and fed K6's output (n = 16, 512, "high"). K11
+    checkpoint against its plain version: "fast" (its tensor-core tile) at
+    TC_NS on bf16 activations, and at n = 16 and 512 on f32 ones, as given
+    and as K6's output; "high" (the SIMT tile) at BLOCK32_NS and fed K6's
+    output (n = 16, 512). K11
     (`legacy`: format -> params) on wqkv, gate_up, down and the head's first
     1000 rows of each legacy format: "fast" (its tensor-core tile) at TC_NS
     on bf16 activations, and at n = 16 and 512 on f32 ones, as given and
@@ -1057,9 +1111,11 @@ def compare_block32(layer8: dict, head8, legacy: dict,
     for label, w in [(key, layer8[key]) for key in
                      ("wqkv", "wo", "gate_up", "down")] + [("head", head8)]:
         shape = f"{label} {w.shape[0]}x{w.shape[1]}"
+        bf16_cases("mmq_q8_0", mmq_q8_0, plain8, w, shape, TC_NS, ("fast",))
         bf16_cases("mmq_q8_0", mmq_q8_0, plain8, w, shape, BLOCK32_NS,
-                   ("fast", "high"))
-        q8_1_cases("mmq_q8_0", mmq_q8_0, plain8, w, shape, (("high", True),))
+                   ("high",))
+        q8_1_cases("mmq_q8_0", mmq_q8_0, plain8, w, shape,
+                   (("fast", False), ("fast", True), ("high", True)))
     for fmt, params in legacy.items():
         layer = params["layers"][0]
         for key, w in (("wqkv", layer["wqkv"]), ("gate_up", layer["gate_up"]),
@@ -1082,12 +1138,14 @@ def compare_compat(seed: int, gen: torch.Generator, rep: Report,
     """K10 (K12, K13) through the reference's calling convention,
     `compat.mmq_q8_0(A, B, M, N, K)` (`mmq_q2_k`, `mmq_q3_k`; act_quant and
     "high" by default), over the reference's sweep: M, N in COMPAT_MNS, K
-    in `ks` (for Q8_0, K = 32 and 96 end on a half step of the kernel's K
-    loop)."""
+    in `ks`, with and without act_quant; Q8_0 also under "fast" (its
+    tensor-core tile, whose one 128-element chunk is ragged at K = 32, 64
+    and 96; the SIMT tile ends on a half step at K = 32 and 96)."""
     rng = np.random.default_rng(seed)
     kernel = "mmq_" + fmt
     plain = {"q8_0": mmq_q8_0_plain, "q2_k": mmq_q2_k_plain,
              "q3_k": mmq_q3_k_plain}[fmt]
+    precs = ("high", "fast") if fmt == "q8_0" else ("high",)
     for m in COMPAT_MNS:
         for k in ks:
             a = QUANTIZERS[fmt](rng.standard_normal((m, k)))
@@ -1095,15 +1153,19 @@ def compare_compat(seed: int, gen: torch.Generator, rep: Report,
             for n in COMPAT_MNS:
                 b = torch.randn((n, k), generator=gen, device=DEVICE)
                 for act_quant in (True, False):
-                    got = getattr(compat, kernel)(a, b, m, n, k, device=DEVICE,
-                                                  act_quant=act_quant)
                     x = fake_quantize_q8_1_plain(b) if act_quant else b
-                    err, rel = rel_err(got, plain(w, x))
-                    if fmt != "q8_0":
-                        # held to the scale of the f32 sums' own rounding
-                        rel = err / _terms_max(w, x)
-                    rep.add(kernel, f"compat M={m} N={n} K={k} "
-                            f"act_quant={act_quant}", err, rel, TOL_HIGH)
+                    for prec in precs:
+                        got = getattr(compat, kernel)(
+                            a, b, m, n, k, device=DEVICE, act_quant=act_quant,
+                            precision=prec)
+                        err, rel = rel_err(got, plain(w, x, precision=prec))
+                        if fmt != "q8_0":
+                            # held to the scale of the f32 sums' own rounding
+                            rel = err / _terms_max(w, x)
+                        rep.add(kernel, f"compat M={m} N={n} K={k} "
+                                f"act_quant={act_quant}"
+                                + ("" if prec == "high" else " fast"), err,
+                                rel, TOL_HIGH if prec == "high" else TOL_MMQ)
 
 
 def _terms_max(w: QuantWeight, x: torch.Tensor) -> float:
@@ -1485,10 +1547,18 @@ def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
     return kern, per_step
 
 
+def require_step(per_step: dict, want: dict) -> None:
+    """Fail unless a decode step launched each kernel in `want` exactly
+    that many times (the wrappers' launches per step)."""
+    bad = {k: per_step.get(k) for k, n in want.items() if per_step.get(k) != n}
+    if bad:
+        raise AssertionError(f"launches per decode step {bad}, want {want}")
+
+
 # kernel-name pieces by which device time is summed per source
 KERNEL_GROUPS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q5_k", "mmq_q6_k",
                  "mmq_iq4", "mmq_q8_0", "mmq_q4_0", "mmq_q4_1", "mmq_q5_0",
-                 "mmq_q5_1", "add_splits", "to_bf16")
+                 "mmq_q5_1", "add_splits", "to_bf16", "attn_kernel", "tiled_")
 
 
 def log_groups(kern: list, runs: int, unit: str) -> None:
@@ -1556,8 +1626,11 @@ def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
     for lens, span in ((ROUND_A, 512), (ROUND_B, SEQ7B)):
         pos = torch.tensor([lens[i % len(lens)] for i in range(MAX_BATCH)],
                            dtype=torch.int32, device=DEVICE)
-        kern, _ = decode_split(llm, tok, pos, span,
-                               f"7B decode step, 16 slots, span {span}", gen)
+        kern, per_step = decode_split(llm, tok, pos, span,
+                                      f"7B decode step, 16 slots, span {span}",
+                                      gen)
+        if span == 512:     # within the single-tile envelope: K4 per layer
+            require_step(per_step, {"decode_attention": layers})
         tiled = sum(e.self_device_time_total for e in kern
                     if "tiled_" in e.key) / 4 / layers / 1e3
         if span == SEQ7B:
@@ -1709,9 +1782,8 @@ def block32_paths(seed: int, writers: Writers, gen: torch.Generator,
                 llms[fmt], tok, pos, 256,
                 f"TinyLlama {fmt} decode step, 16 slots, span 256", gen_step)
             kernel = "mmq_q8_0" if fmt == "q8_0" else "mmq_legacy"
-            if per_step.get(kernel) != 4 * CFG.n_layers + 1:
-                raise AssertionError(f"{kernel} launches per decode step: "
-                                     f"{per_step}")
+            require_step(per_step, {kernel: 4 * CFG.n_layers + 1,
+                                    "decode_attention": CFG.n_layers})
         prefill_chunk(llms["q4_0"], _chunk_tokens(seed), 0, "TinyLlama Q4_0")
     with phase("reference checks of the five formats (2 layers)"):
         for fmt, llm in llms.items():
@@ -1789,7 +1861,8 @@ def _chunk_tokens(seed: int) -> np.ndarray:
 # `--mix-step` checkpoints: tag -> name in the log
 STEP_NAMES = {"q2k_mix": "TinyLlama Q2_K mix", "q5km": "TinyLlama Q5_K_M bf16",
               "iq4_xs_2l": "TinyLlama IQ4_XS (2 layers)",
-              "q4_0": "TinyLlama Q4_0"}
+              "q4_0": "TinyLlama Q4_0", "q8_0": "TinyLlama Q8_0",
+              "q4km": "TinyLlama Q4_K_M"}
 
 
 def mix_step(path: str, seed: int, name: str) -> None:
@@ -1853,9 +1926,10 @@ def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
     launches = {k: launches[k] for k in ("mmq_q2_k", "mmq_q3_k")}
     with phase("Q2_K mix decode step"):
         tok, pos, gen_step = _step_inputs(seed)
-        decode_split(llms["mix"], tok, pos, 256,
-                     "TinyLlama Q2_K mix decode step, 16 slots, span 256",
-                     gen_step)
+        _, per_step = decode_split(
+            llms["mix"], tok, pos, 256,
+            "TinyLlama Q2_K mix decode step, 16 slots, span 256", gen_step)
+        require_step(per_step, {"decode_attention": CFG.n_layers})
         launches["rms_norm"] = rms_norm_shadow(llms["mix"], tok, pos, 256,
                                                gen_step)
     with phase("Q2_K mix prefill chunk"):
@@ -1925,6 +1999,7 @@ def smoke(seed: int, writers: Writers) -> list:
         compare_mmq(llm4.params, gen, rep)
         compare_attention(gen, rep, h=CFG.n_heads, kvh=CFG.n_kv_heads,
                           hd=CFG.head_dim, s=MAX_SEQ, spans=ATTN_SPANS)
+        compare_attention_tiles(gen, rep)
     with phase("serve Q4_K_M"):
         launches = serve(llm4, seed, Q4KM_KERNELS)
     with phase("reference check Q4_K_M"):
@@ -1977,8 +2052,8 @@ def smoke(seed: int, writers: Writers) -> list:
         _, per_step = decode_split(llm5, tok, pos, 256, "TinyLlama Q5_K_M "
                                    "bf16 decode step, 16 slots, span 256",
                                    gen_step)
-        if per_step.get("mmq_q5_k") != 4 * CFG.n_layers:
-            raise AssertionError(f"K8 launches per decode step: {per_step}")
+        require_step(per_step, {"mmq_q5_k": 4 * CFG.n_layers,
+                                "decode_attention": CFG.n_layers})
         prefill_chunk(llm5, _chunk_tokens(seed), 0, "TinyLlama Q5_K_M bf16")
     del llm5, cpu5
     torch.cuda.empty_cache()
@@ -2033,7 +2108,8 @@ def smoke(seed: int, writers: Writers) -> list:
     # where the profiler recorded none); "bound_ms": the larger of the
     # bytes over 3.35 TB/s and the operations over their peak;
     # "library_ms": one PyTorch call computing the same function (null
-    # where there is none); "wide": the same at the kernel's WIDE shape
+    # where there is none); "wide" or "7b": the same at the kernel's
+    # SECOND shape
     return [{"name": name, "route": "cuda", "source": src,
              "replaces": replaces, "shape": HEADLINE[name],
              "launches": launches[name], "max_abs_err": rep.err[name],
@@ -2042,7 +2118,7 @@ def smoke(seed: int, writers: Writers) -> list:
              "library_ms": rep.library[name],
              "device_ms": rep.times[name][2],
              "plain_device_ms": rep.times[name][3],
-             **({"wide": rep.wide[name]} if name in rep.wide else {})}
+             **dict([rep.second[name]] if name in rep.second else [])}
             for name, (src, replaces) in KERNELS.items()]
 
 

@@ -1,5 +1,7 @@
-// The MMQ tile of the 32-element-block formats, shared by K10
-// (mmq_q8_0.cu), K11 (mmq_legacy.cu) and K14 (mmq_iq4.cu).
+// The SIMT MMQ tile of the 32-element-block formats under "high" (f32
+// operands and products), shared by K10 (mmq_q8_0.cu), K11
+// (mmq_legacy.cu) and K14 (mmq_iq4.cu); their "fast" arms run the
+// tensor-core tile of block32_tc.cuh.
 //
 // out (N, M) f32 = x (N, K) . W (M, K)^T, W read from the per-field arrays
 // QuantWeight splits the GGUF blocks into (rows keep the GGUF byte order):
@@ -18,8 +20,8 @@
 // and its 16 code bytes sit where an IQ4_NL block's would, at 16*(8s+ib).
 //
 // The legacy formats follow the reference's split product: the staged
-// weight is d*q with the RAW code q (no offset), rounded to bf16 under
-// "fast" like the activations, and a per-32-block correction
+// weight is d*q with the RAW code q (no offset), and a per-32-block
+// correction
 // corr[m] * bsum[n] is added in f32, where corr is m (_1) or -off*d (_0)
 // and bsum is the sum of the block's unrounded f32 activations (rounded
 // through fp16 under act_quant: Q8_1's s field). Q8_0 and the IQ4 formats
@@ -74,7 +76,7 @@ __device__ __forceinline__ void mmq_tile(
     const __half* __restrict__ dv, const void* __restrict__ mv,
     const void* __restrict__ qhv, const uint8_t* __restrict__ qs,
     const void* __restrict__ x, float* __restrict__ out,
-    float* __restrict__ part, int M, int N, int K, int fast, int fp16_bsum,
+    float* __restrict__ part, int M, int N, int K, int fp16_bsum,
     int steps_per_split) {
   using namespace mmq;
   using T = Traits<F>;
@@ -131,9 +133,7 @@ __device__ __forceinline__ void mmq_tile(
         code = static_cast<int>((byte_of(c, i) >> (4 * h)) & 0xF);
         if constexpr (T::FIVE) code |= static_cast<int>((hb >> i) & 1) << 4;
       }
-      float w = __fmul_rn(d, static_cast<float>(code));   // exact in f32
-      if (fast) w = bf16_round(w);
-      ws[32 * b + 16 * h + i][r] = w;
+      ws[32 * b + 16 * h + i][r] = __fmul_rn(d, static_cast<float>(code));   // exact
     }
     if constexpr (T::LEGACY) {
       if (h == 0) {
@@ -160,7 +160,7 @@ __device__ __forceinline__ void mmq_tile(
         if ((kk & 31) == 0)
           bs[kk >> 5][n] = fp16_bsum ? __half2float(__float2half_rn(sum)) : sum;
       }
-      xs[kk][n] = fast ? bf16_round(v) : v;
+      xs[kk][n] = v;
     }
     __syncthreads();
     fma_tile<BN, TM, TN>(ws, xs, acc, tx, ty);

@@ -1,29 +1,38 @@
 // The bf16 tensor-core tile of the 32-element-block formats under "fast",
 // over the per-field arrays QuantWeight splits their blocks into
-// (block32.cuh lists them). K14 (mmq_iq4.cu: IQ4_NL, IQ4_XS) and K11
-// (mmq_legacy.cu: Q4_0, Q4_1, Q5_0, Q5_1) run it; the format is a policy F
-// (the fields read by plain loads, the scale of each 32-block, the
-// code-to-value step, and for K11 the f32 correction term), so K10 can
-// take the same ring with a policy of its own.
+// (block32.cuh lists them). K14 (mmq_iq4.cu: IQ4_NL, IQ4_XS), K11
+// (mmq_legacy.cu: Q4_0, Q4_1, Q5_0, Q5_1) and K10 (mmq_q8_0.cu: Q8_0) run
+// it; the format is a policy F (the code bytes per row and chunk, the
+// fields read by plain loads, the scale of each 32-block, the
+// code-to-value step, and for K11 the f32 correction term).
 //
 // out (N, M) f32 = x . W^T with w = bf16(scale * value(q)) rounded in that
 // order and x = bf16(x), f32 sums. A warpgroup owns 64 weight rows (two
 // share each activation tile above n = 64) and walks K in chunks of KH =
-// 128 elements: four 32-blocks, whose 16 code bytes each (byte j: element
-// j in the low nibble, j + 16 in the high) are one 64-byte TMA box per row
-// of the (M, K/2) qs field, so every code byte leaves device memory once.
+// 128 elements: four 32-blocks, whose code bytes are one TMA box per row
+// of the qs field, so every code byte leaves device memory once. F::CODE
+// says how many: 64 for the nibble formats (16 bytes per block, byte j
+// holding element j in the low nibble and j + 16 in the high; a box over
+// the (M, K/2) field, 64-byte swizzle) or 128 for Q8_0 (32 int8 codes per
+// block in element order; a box over the (M, K) field, 128-byte swizzle).
 // A stage holds the x tile (two (BN x 64) bf16 boxes, 128-byte swizzle:
-// wgmma's K-major layout) and the rows' 64 code bytes (64-byte swizzle:
-// conflict-free fragment loads); the other fields, a few bytes per row and
+// wgmma's K-major layout) and the rows' code bytes (swizzled so the
+// fragment loads are conflict-free); the other fields, a few bytes per row and
 // chunk (IQ4_XS's d row of K/128 bytes breaks TMA's 16-byte stride rule at
 // K = 256, and loading 16-byte-wide boxes for K7's dA/s raised
 // cudaErrorIllegalInstruction on the H100), are plain loads one chunk
 // ahead.
-// k16 step s of a chunk lies in 32-block s/2: the low nibbles when s is
-// even, the high ones when odd, so lane t's four codes of steps 2b and
-// 2b+1 are nibbles of bytes 2t, 2t+1, 2t+8 and 2t+9 of block b: K1's byte
-// permute gives them in one word, and F::values turns its eight codes into
-// two words of int8 values, one per step. STAGES - 2 chunks are in flight;
+// k16 step s of a chunk lies in 32-block s/2. For the nibble formats it is
+// the low nibbles when s is even, the high ones when odd, so lane t's four
+// codes of steps 2b and 2b+1 are nibbles of bytes 2t, 2t+1, 2t+8 and 2t+9
+// of block b: K1's byte permute gives them in one word, and F::values
+// turns its eight codes into two words of int8 values, one per step. For
+// Q8_0 step s is the 16 code bytes s of the row's 128, and lane t's four
+// codes are bytes 2t, 2t+1, 2t+8 and 2t+9 of them: two 32-bit shared loads
+// and the same byte permute give them as int8 values, with no lookup.
+// A chunk past K (Q8_0 takes any K that is a multiple of 32, so its last
+// chunk may hold 1-3 blocks) arrives as zeros from TMA's out-of-bounds
+// fill, and F::small masks the plain loads past K. STAGES - 2 chunks are in flight;
 // blocks start at different chunks of their K range; K is cut across the
 // grid's z axis in whole chunks and mmq::add_splits adds the partial tiles
 // in split order.
@@ -54,9 +63,9 @@ namespace block32_tc {
 using namespace tc;
 
 // BN activation rows x WG warpgroups of 64 weight rows per block. A stage:
-// the x tile (two (BN x 64) bf16 boxes of XBOX bytes) and the rows' 64 code
-// bytes of the chunk.
-template <int BN, int WG>
+// the x tile (two (BN x 64) bf16 boxes of XBOX bytes) and the rows' CODE
+// code bytes of the chunk.
+template <int BN, int WG, int CODE = 64>
 struct Tile {
   static constexpr int ROWS = BM * WG;
   static constexpr int THREADS = NTHREADS * WG;
@@ -64,7 +73,7 @@ struct Tile {
   static constexpr int AHEAD = STAGES - 2;   // chunks loaded ahead
   static constexpr int XBOX = BN * KC * 2;
   static constexpr int QS = 2 * XBOX;
-  static constexpr int STAGE = QS + ROWS * 64;
+  static constexpr int STAGE = QS + ROWS * CODE;
   static constexpr int SMEM = STAGES * STAGE + 1024;
   static_assert(XBOX % 1024 == 0 && STAGE % 1024 == 0,
                 "every box of a stage must be 1024-byte aligned");
@@ -115,21 +124,22 @@ struct Fields {
 };
 
 // The kernel body. F provides:
+//   F::CODE: code bytes per row and chunk, 64 (nibbles) or 128 (int8);
 //   F::Small, F::small(fields, m, K, c) -> Small: row m's plain-load fields
-//     of chunk c;
+//     of chunk c (zero past K);
 //   F::scale(small, c, b) -> float: the f32 scale of 32-block b (0..3) of
 //     chunk c, rounded as the reference rounds it;
-//   F::values(v, small, b, t, lo, hi): v holds lane t's four code bytes of
-//     block b; lo and hi get the int8 values of their low and of their high
-//     nibbles, in byte order;
+//   F::values(v, small, b, t, lo, hi) (CODE 64 only): v holds lane t's
+//     four code bytes of block b; lo and hi get the int8 values of their
+//     low and of their high nibbles, in byte order;
 //   F::CORR, F::corr(small, b) -> float: whether there is a correction
-//     term, and its f32 factor for block b.
+//     term, and (CORR only) its f32 factor for block b.
 template <class F, int BN, int WG>
 __device__ __forceinline__ void tile(const CUtensorMap& tx, const CUtensorMap& tqs,
                                      const Fields& f, float* __restrict__ out,
                                      float* __restrict__ part, int M, int N, int K,
                                      int chunks_per_split) {
-  using T = Tile<BN, WG>;
+  using T = Tile<BN, WG, F::CODE>;
   using Small = typename F::Small;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[T::STAGES];
@@ -139,7 +149,7 @@ __device__ __forceinline__ void tile(const CUtensorMap& tx, const CUtensorMap& t
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int m0 = blockIdx.x * T::ROWS, n0 = blockIdx.y * BN;
   const int c0 = blockIdx.z * chunks_per_split;
-  const int nch = min(K / KH, c0 + chunks_per_split) - c0;
+  const int nch = min((K + KH - 1) / KH, c0 + chunks_per_split) - c0;
   const int rot = blockIdx.x % nch;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row = 16 * (threadIdx.x >> 5) + g;   // and row + 8
@@ -152,7 +162,7 @@ __device__ __forceinline__ void tile(const CUtensorMap& tx, const CUtensorMap& t
       mbar_expect_tx(&full[st], T::STAGE);
       tma_load_2d(dst, &tx, KH * c, n0, &full[st]);
       tma_load_2d(dst + T::XBOX, &tx, KH * c + KC, n0, &full[st]);
-      tma_load_2d(dst + T::QS, &tqs, 64 * c, m0, &full[st]);
+      tma_load_2d(dst + T::QS, &tqs, F::CODE * c, m0, &full[st]);
     }
   };
   if (threadIdx.x == 0) {
@@ -196,11 +206,18 @@ __device__ __forceinline__ void tile(const CUtensorMap& tx, const CUtensorMap& t
       }
   };
   uint32_t a[2][4];
-  // lane t's codes of a step are bytes 2t, 2t+1, 8+2t, 9+2t of a block's 16
-  // bytes: halves of words t/2 and t/2 + 2 (K1's pattern); block b of row r
-  // sits at 16-byte piece b ^ ((r >> 1) & 3) (64-byte swizzle)
+  // lane t's codes of a step are bytes 2t, 2t+1, 8+2t, 9+2t of 16 code
+  // bytes (a nibble block's, or a Q8_0 step's): halves of words t/2 and
+  // t/2 + 2 (K1's pattern). Piece u (16 bytes) of row r sits at u ^ ((r >>
+  // 1) & 3) under the 64-byte swizzle and at u ^ (r & 7) under the 128-byte
+  // one; r & 7 is g for both of this lane's rows.
   const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
-  const int sw = (g >> 1) & 3;
+  const int sw = F::CODE == 64 ? (g >> 1) & 3 : g;
+  auto codes = [&](const uint8_t* qrow, int u) {   // piece u of a row's codes
+    const uint8_t* p = qrow + 16 * (u ^ sw) + 4 * (t >> 1);
+    return __byte_perm(*reinterpret_cast<const uint32_t*>(p),
+                       *reinterpret_cast<const uint32_t*>(p + 8), sel);
+  };
 
   for (int i = 0; i < nch; ++i) {
     // every warp is past chunk i-1's first wgmma_wait, so chunk i-2's
@@ -236,23 +253,29 @@ __device__ __forceinline__ void tile(const CUtensorMap& tx, const CUtensorMap& t
       }
     }
     float s[2][4];      // [row, row + 8][32-block] scale
-    uint32_t v[2][4];   // [row, row + 8][32-block] this lane's code bytes
+    uint32_t v[2][4];   // [row, row + 8][32-block] this lane's nibble bytes
+    const uint8_t* qrow[2] = {st + T::QS + F::CODE * row, st + T::QS + F::CODE * (row + 8)};
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         s[e][b] = F::scale(smc[e], c, b);
         if constexpr (F::CORR) cp[e][b] = F::corr(smc[e], b);
-        const uint8_t* p = st + T::QS + 64 * (row + 8 * e) + 16 * (b ^ sw) + 4 * (t >> 1);
-        v[e][b] = __byte_perm(*reinterpret_cast<const uint32_t*>(p),
-                              *reinterpret_cast<const uint32_t*>(p + 8), sel);
+        if constexpr (F::CODE == 64) v[e][b] = codes(qrow[e], b);
       }
     }
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      uint32_t val[2][2];   // [row, row + 8][low, high nibbles]
+      uint32_t val[2][2];   // [row, row + 8][steps 2b, 2b + 1]: int8 values
 #pragma unroll
-      for (int e = 0; e < 2; ++e) F::values(v[e][b], smc[e], b, t, val[e][0], val[e][1]);
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (F::CODE == 64) {
+          F::values(v[e][b], smc[e], b, t, val[e][0], val[e][1]);
+        } else {
+          val[e][0] = codes(qrow[e], 2 * b);
+          val[e][1] = codes(qrow[e], 2 * b + 1);
+        }
+      }
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {   // k16 step 2b + hf
         uint32_t(&af)[4] = a[hf];
@@ -285,18 +308,20 @@ __device__ __forceinline__ void tile(const CUtensorMap& tx, const CUtensorMap& t
 }
 
 // Launch `kernel` (a __global__ wrapper of tile<F, BN, WG>, named for its
-// format) over a (M / ROWS, N / BN, splits) grid, then the split sum.
-template <int BN, int WG, typename Kernel>
+// format, F::CODE = CODE) over a (M / ROWS, N / BN, splits) grid, then the
+// split sum.
+template <int BN, int WG, int CODE = 64, typename Kernel>
 cudaError_t launch(Kernel kernel, const Fields& f, const uint8_t* qs, const void* xb,
                    float* out, float* part, int M, int N, int K, int splits, int per,
                    cudaStream_t st) {
-  using T = Tile<BN, WG>;
+  using T = Tile<BN, WG, CODE>;
   CUtensorMap tx, tqs;
   cudaError_t err = tensor_map_2d(&tx, xb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, K, BN, KC,
                                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
-    err = tensor_map_2d(&tqs, qs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K / 2, T::ROWS, 64,
-                        CU_TENSOR_MAP_SWIZZLE_64B);
+    err = tensor_map_2d(&tqs, qs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M,
+                        static_cast<uint64_t>(K) * CODE / KH, T::ROWS, CODE,
+                        CODE == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);

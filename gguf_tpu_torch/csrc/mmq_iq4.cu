@@ -76,6 +76,7 @@ __device__ __forceinline__ void iq4_values(uint32_t v, uint32_t& lo, uint32_t& h
 struct NL {
   using Small = uint2;
   static constexpr bool CORR = false;   // symmetric: no correction term
+  static constexpr int CODE = 64;       // 16 nibble bytes per 32-block
   __device__ static uint2 small(const block32_tc::Fields& f, size_t m, int K, int c) {
     return *reinterpret_cast<const uint2*>(f.d + m * (K / 32) + 4 * c);
   }
@@ -94,6 +95,7 @@ struct NL {
 struct XS {
   using Small = uint2;
   static constexpr bool CORR = false;
+  static constexpr int CODE = 64;
   __device__ static uint2 small(const block32_tc::Fields& f, size_t m, int K, int c) {
     const size_t sb = m * (K / 256) + (c >> 1);
     return make_uint2(f.d[sb] | static_cast<uint32_t>(f.scales_h[sb]) << 16,
@@ -136,7 +138,7 @@ mmq_iq4_nl_kernel(const __half* __restrict__ d, const uint8_t* __restrict__ qs,
                   float* __restrict__ part, int M, int N, int K,
                   int steps_per_split) {
   block32::mmq_tile<block32::IQ4_NL, BN, TM, TN, XBF16>(
-      d, nullptr, nullptr, qs, x, out, part, M, N, K, 0, 0, steps_per_split);
+      d, nullptr, nullptr, qs, x, out, part, M, N, K, 0, steps_per_split);
 }
 
 template <int BN, int TM, int TN, bool XBF16>
@@ -148,7 +150,7 @@ mmq_iq4_xs_kernel(const __half* __restrict__ d,
                   float* __restrict__ out, float* __restrict__ part, int M,
                   int N, int K, int steps_per_split) {
   block32::mmq_tile<block32::IQ4_XS, BN, TM, TN, XBF16>(
-      d, scales_h, scales_l, qs, x, out, part, M, N, K, 0, 0, steps_per_split);
+      d, scales_h, scales_l, qs, x, out, part, M, N, K, 0, steps_per_split);
 }
 
 }  // namespace

@@ -57,7 +57,7 @@ namespace {
        float* __restrict__ part, int M, int N, int K, int fp16_bsum,           \
        int steps_per_split) {                                                  \
     block32::mmq_tile<FMT, BN, TM, TN, XBF16>(d, m, qh, qs, x, out, part, M,   \
-                                              N, K, 0, fp16_bsum,              \
+                                              N, K, fp16_bsum,                 \
                                               steps_per_split);                \
   }
 
@@ -82,6 +82,7 @@ template <int F>
 struct Legacy {
   using Tr = block32::Traits<F>;
   static constexpr bool CORR = true;
+  static constexpr int CODE = 64;   // 16 nibble bytes per 32-block
   struct Small {
     uint2 d, m;
     uint4 qh;

@@ -1,13 +1,13 @@
 // The tensor-core MMQ tiles of K1 and K8 under "fast" (kquant_tc.cuh, for
 // mmq_q4_k.cu and mmq_q5_k.cu) and K7 (mmq_i8.cu) over Q4_K / Q5_K
 // superblocks as stored in GGUF (kquant.cuh), and of K2 (mmq_q6_k.cu), K12
-// (mmq_q2_k.cu), K13 (mmq_q3_k.cu), K14 and K11 (block32_tc.cuh, for
-// mmq_iq4.cu and mmq_legacy.cu) under "fast" over the per-field arrays of
-// Q6_K / Q2_K / Q3_K / IQ4 / Q4_0..Q5_1 (KH-element chunks, their notes
-// say how): TMA copies of the weight bytes into a ring of shared-memory
-// stages, each completing on its stage's mbarrier, the A fragments decoded
-// from those bytes in registers, and the bf16 wgmma instructions with A
-// from registers.
+// (mmq_q2_k.cu), K13 (mmq_q3_k.cu), K14, K11 and K10 (block32_tc.cuh,
+// for mmq_iq4.cu, mmq_legacy.cu and mmq_q8_0.cu) under "fast" over the
+// per-field arrays of Q6_K / Q2_K / Q3_K / IQ4 / Q4_0..Q5_1 / Q8_0
+// (KH-element chunks, their notes say how): TMA copies of the weight
+// bytes into a ring of shared-memory stages, each completing on its
+// stage's mbarrier, the A fragments decoded from those bytes in registers,
+// and the bf16 wgmma instructions with A from registers.
 //
 // A warpgroup owns BM = 64 weight rows (four warps of 16) and walks K in
 // chunks: K1's chunk c of KC = 64 elements is the nibble run j = c % 4 of
@@ -39,7 +39,7 @@ namespace tc {
 
 constexpr int BM = 64;         // weight rows per warpgroup
 constexpr int KC = 64;         // K elements per nibble run
-constexpr int KH = 2 * KC;     // K elements per chunk of K2, K11-K14: half a superblock
+constexpr int KH = 2 * KC;     // K elements per chunk of K2, K10-K14: half a superblock
 constexpr int NTHREADS = 128;  // four warps: one warpgroup
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -25,6 +25,12 @@ and the scale in f32 — then codes = clip(rint(x / scale), ±127) with an
 IEEE division and round-half-to-even. A position outside [0, S) writes
 nothing: inactive engine slots step at pos = max_seq.
 
+K4 is one launch per call: a thread-block cluster of `k4_plan`'s size per
+(batch, KV head) splits the live prefix of the span (the rows up to pos +
+t - 1) across its CTAs and their warps, merges the rows' max and sum over
+the cluster before any p is formed (the reference's two-pass softmax), and
+adds the partial outputs in a fixed order (csrc/attention.cu says how).
+
 `kv_cache_insert.launches` counts K3 launches,
 `decode_attention.launches` counts K4 launches, whether K4 runs read-only
 or with its fused t = 1 insert, and `decode_attention_tiled.launches`
@@ -34,17 +40,20 @@ counts K9 calls (each is three CUDA launches: scores, p . v, combine).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
+from .mmq_q4_k import sm_count
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 RECIP_127 = float(torch.tensor(1 / 127, dtype=torch.float32))
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
     "kv_cache_insert_launch": [_VP] * 7 + [_I] * 5 + [_VP],
-    "decode_attention_launch": [_VP] * 9 + [_I] * 7 + [_F, _F, _I, _I, _VP],
+    "decode_attention_launch": [_VP] * 9 + [_I] * 7 + [_F, _F] + [_I] * 4
+    + [_VP],
     "decode_attention_tiled_launch": [_VP] * 8 + [_I] * 6
     + [_F, _F, _I, _I, _VP],
 }
@@ -54,6 +63,9 @@ HEAD_DIMS = (64, 128)
 # PALLAS_ATTN_MAX_ELEMS; `models/llama.py:attention` keys off it too)
 PALLAS_ATTN_MAX_ELEMS = 2 ** 21
 TILE = 256                  # cache rows per tile of the tiled form
+K4_WARPS = 8                # warps per CTA of K4 (csrc/attention.cu)
+K4_MAX_CLUSTER = 4          # CTAs per (batch, KV head)
+K4_SMEM = 232448            # shared memory a block can use on an H100
 
 
 def quantize_kv(x: torch.Tensor):
@@ -182,6 +194,38 @@ def decode_attention_plain(q, k, k_scale, v, v_scale, pos, *, t: int,
     return out.reshape(b, h, t, hd)
 
 
+def k4_smem_bytes(r: int, hd: int, kt: int) -> int:
+    """K4's dynamic shared memory for r query rows and a tile of kt keys
+    (csrc/attention.cu: AttnSmem)."""
+    def up4(n):
+        return (n + 3) & ~3
+    rb = 1 if r == 1 else 8
+    return 4 * (2 * r * hd + r * up4(kt) + K4_WARPS * rb * hd
+                + up4(K4_WARPS * r) + 4 * up4(r) + hd // 2 + 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def k4_plan(b: int, kvh: int, g: int, t: int, span: int, hd: int,
+            sms: int) -> tuple:
+    """(clusters, tile keys) of K4 for B slots over KVH heads of hd, G
+    query heads per KV head, t tokens and `span` cache rows, on `sms` SMs.
+    The cluster doubles (up to K4_MAX_CLUSTER CTAs) while twice the CTAs
+    still fit the SMs once (twice when the block has more than 8 query
+    rows: there a CTA's work outweighs the cluster's barriers) and each
+    CTA keeps at least 64 rows of the span; the
+    tile is the keys a CTA's range can hold (ceil(span / clusters)) unless
+    their scores would outgrow shared memory (then the CTA scores its
+    range in tiles, a multiple of 32 keys each). The warp split follows
+    the live rows of each call, in the kernel. Cached per shape."""
+    r = g * t
+    fill = sms * (2 if r > 8 else 1)
+    c = 1
+    while c < K4_MAX_CLUSTER and 2 * b * kvh * c <= fill and span >= 128 * c:
+        c *= 2
+    room = (K4_SMEM - k4_smem_bytes(r, hd, 0)) // (4 * r) // 32 * 32
+    return c, min(-(-span // c), room)
+
+
 def _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *, t,
                  precision, span, window, softcap):
     """Launch K4; with k_new/v_new given (t = 1) the block first inserts
@@ -204,12 +248,15 @@ def _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *, t,
     else:
         kn = vn = qf     # unused by the kernel
     out = torch.empty((b, h, t, hd), dtype=torch.float32, device=q.device)
+    clusters, tile = k4_plan(b, kvh, h // kvh, t, span, hd,
+                             sm_count(q.device.index or 0))
     err = _lib().decode_attention_launch(
         build.ptr(qf), build.ptr(kn), build.ptr(vn), build.ptr(k),
         build.ptr(k_scale), build.ptr(v), build.ptr(v_scale), build.ptr(p),
         build.ptr(out), b, kvh, h // kvh, t, s, span, hd,
         1.0 / hd ** 0.5, float(softcap), int(window),
-        int(precision == "fast") | (2 if insert else 0), build.stream_ptr())
+        int(precision == "fast") | (2 if insert else 0), clusters, tile,
+        build.stream_ptr())
     build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

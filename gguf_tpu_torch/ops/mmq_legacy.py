@@ -7,7 +7,7 @@ activations B (N, K): output (N, M) float32. Counterpart of
 the CUDA source is `gguf_tpu_torch/csrc/mmq_legacy.cu`: "fast" runs its
 bf16 tensor-core tile (`csrc/block32_tc.cuh`, a policy per format,
 128-element chunks, split as `tc_plan` says), "high" the SIMT f32 tile of
-`csrc/block32.cuh` shared with K10 (`mmq_q8_0`).
+`csrc/block32.cuh` shared with K10 (`mmq_q8_0`) and K14.
 
 The product is split as the reference splits it, which under "fast" is
 not dequantize-then-matmul: with q the raw 4- or 5-bit code (before the

@@ -72,8 +72,8 @@ def tc_tile(n: int) -> tuple:
 @functools.lru_cache(maxsize=4096)
 def split_k(m: int, n: int, k: int, sms: int, tile: tuple | None = None,
             per_sm: int = 2, kt: int = KT) -> tuple:
-    """How the split-K kernels (K1, K2, K8 and K11-K14 "fast", K7,
-    K10-K14) cut K across the grid's z axis: (splits, K steps of `kt` per
+    """How the split-K kernels (K1, K2, K8 and K10-K14 "fast", K7,
+    K10-K14 "high") cut K across the grid's z axis: (splits, K steps of `kt` per
     split), for a tile of (rows, width) = `tile`, by default (BM, 8, 16 or
     64 from n). Enough blocks for `per_sm` per SM when M and N give too
     few (decode widths at M = 2048: 32 blocks), at most MAX_SPLITS; the
@@ -99,7 +99,7 @@ def split_scratch(splits: int, n: int, m: int,
 
 def tc_plan(m: int, n: int, k: int, sms: int) -> tuple:
     """(splits, chunks per split) of the "fast" tensor-core tiles of K2 and
-    K11-K14 (KH-element chunks, the tile `tc_tile(n)`), 2 blocks
+    K10-K14 (KH-element chunks, the tile `tc_tile(n)`), 2 blocks
     per SM asked at every width: the 32000-row head (500 row blocks) is not
     split, where 4 per SM would split it in two and add a partial-sum
     pass."""
@@ -117,7 +117,7 @@ def k1_plan(m: int, n: int, k: int, sms: int) -> tuple:
 def launch_tc(fn, w: QuantWeight, b: torch.Tensor, fields: list,
               what: str, extra: tuple = (), plan=tc_plan,
               bsum: bool = False) -> torch.Tensor:
-    """Launch a "fast" tensor-core tile (K2, K8, K11-K14) on validated CUDA
+    """Launch a "fast" tensor-core tile (K2, K8, K10-K14) on validated CUDA
     operands: `fn(*fields, x, xb, [bsum,] out, part, *extra, M, N, K,
     x_bf16, splits, chunks_per_split, stream)`, `fields` listing (tensor or
     None where the format has no such field, the byte alignment its loads

@@ -9,8 +9,10 @@ product. `act_quant=True` fake-quantizes the activations to Q8_1 first
 False, see `mmq_q4_k`). Counterpart of `gguf_tpu/ops/mmq_q8_0.py:mmq_q8_0`
 (Pallas `_kernel`, `_kernel_plane`, `_kernel_ink`; the plane order and
 in-kernel permutes are TPU glue, the port keeps natural element order);
-the CUDA source is `gguf_tpu_torch/csrc/mmq_q8_0.cu` over the tile in
-`csrc/block32.cuh`, shared with K11 (`mmq_legacy`).
+the CUDA source is `gguf_tpu_torch/csrc/mmq_q8_0.cu`: "fast" runs its
+bf16 tensor-core tile (`csrc/block32_tc.cuh` with a Q8_0 policy,
+128-element chunks, split as `tc_plan` says) at every K, "high" the SIMT
+f32 tile of `csrc/block32.cuh` shared with K11 (`mmq_legacy`) and K14.
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches K10 or raises. `mmq_q8_0.launches` counts K10 launches.
@@ -25,16 +27,17 @@ import torch
 from ..quant.layouts import QuantWeight
 from . import build
 from .activation import fake_quant_2d
-from .mmq_q4_k import (check_operands, check_precision, matmul_plain,
-                       sm_count, split_k, split_scratch)
+from .mmq_q4_k import (check_operands, check_precision, launch_tc,
+                       matmul_plain, sm_count, split_k, split_scratch)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"mmq_q8_0_launch": [_VP] * 5 + [_I] * 7 + [_VP]}
+_SIG = {"mmq_q8_0_launch": [_VP] * 5 + [_I] * 7 + [_VP],
+        "mmq_q8_0_tc_launch": [_VP] * 6 + [_I] * 6 + [_VP]}
 
 
 def launch_split_k(fn, w: QuantWeight, b: torch.Tensor, fields: list,
                    extra: tuple, precision: str, what: str) -> torch.Tensor:
-    """Launch a split-K SIMT MMQ kernel (K10, K11, K13; K12 and K14 "high")
+    """Launch a split-K SIMT MMQ kernel (K10-K14 "high")
     on validated CUDA operands:
     `fn(*fields, x, out, part, *extra, M, N, K, x_bf16, fast, splits,
     steps_per_split, stream)`; `fields` lists (tensor or None where the
@@ -94,12 +97,24 @@ def mmq_q8_0(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
         return mmq_q8_0_plain(w, b, precision=precision)
     if b.device.type != "cuda":
         raise ValueError(f"mmq_q8_0 runs on cpu or cuda, not {b.device}")
-    out = launch_split_k(_lib().mmq_q8_0_launch, w, b,
-                         [(w.fields["d"], 2), (w.fields["qs"], 16)], (),
-                         precision, "mmq_q8_0")
+    out = _launch(w, b, precision)
     if b.shape[0]:
         mmq_q8_0.launches += 1
     return out
+
+
+def _launch(w: QuantWeight, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """K10 on validated CUDA operands: the tensor-core tile under "fast" at
+    every K (a multiple of 32), the SIMT tile under "high"."""
+    (_, k), d, qs = w.shape, w.fields["d"], w.fields["qs"]
+    if precision == "fast":
+        # a chunk's four d are one 8-byte load when the d row (K/16
+        # bytes) keeps that alignment, else four 2-byte ones
+        return launch_tc(_lib().mmq_q8_0_tc_launch, w, b,
+                         [(d, 8 if k % 128 == 0 else 2), (qs, 16)],
+                         "mmq_q8_0")
+    return launch_split_k(_lib().mmq_q8_0_launch, w, b, [(d, 2), (qs, 16)],
+                          (), precision, "mmq_q8_0")
 
 
 mmq_q8_0.launches = 0

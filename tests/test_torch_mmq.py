@@ -170,9 +170,9 @@ _DISPATCH = re.compile(
 @pytest.mark.parametrize("source", ["mmq_q4_k.cu", "mmq_q6_k.cu",
                                     "mmq_q2_k.cu", "mmq_q5_k.cu",
                                     "mmq_iq4.cu", "mmq_legacy.cu",
-                                    "mmq_q3_k.cu"])
+                                    "mmq_q3_k.cu", "mmq_q8_0.cu"])
 def test_cuda_dispatch_matches_tc_tile(source):
-    """The tensor-core launch of K1, K2, K12, K8, K14, K11 and K13 dispatches the
+    """The tensor-core launch of K1, K2, K12, K8, K14, K11, K13 and K10 dispatches the
     tile that `tc_tile` (and so the wrappers' split plan) assumes, at
     every width from 1 to 512: (activation rows, warpgroups of 64 weight
     rows)."""
