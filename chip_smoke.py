@@ -112,27 +112,30 @@ d. after the 7B phases, K14 as K12 in a. (tensor cores under "fast") on
 
 Llama-2-7B Q4_K_M with bf16 activations at its 4,096-token context
 (kernels K1-K4 and K9, flash-decoding):
-11. holds K9 against its plain version ("fast" and "high", 1e-3 of
-   max|ref|) at the 7B geometry (16 slots, 32 heads of 128, spans 1024,
-   2048 and 4096, positions 0, 255, 256, random ones and an inactive slot
-   at pos = 4096), with a sliding window and softcap, and at the
+11. holds K9 (one cluster launch per call) against its plain version
+   ("fast" and "high", 1e-3 of max|ref|) at the 7B geometry (16 slots, 32
+   heads of 128, spans 1024, 2048 and 4096, positions 0, 255, 256, random
+   ones and an inactive slot at pos = 4096), with a sliding window and
+   softcap, at one slot (32 clusters, fewer than the SMs), with the fused
+   t = 1 insert (the cache bit-equal to K3's plain insert) and at the
    TinyLlama geometry (8 query heads per KV head, hd 64, span 2048); then
-   K3/K4 at hd 128 with one query head per KV head and K1/K2 at every 7B
-   projection and the head, against their plain versions;
+   K3/K4 at hd 128 with one query head per KV head, K4 at 16 query heads
+   per KV head and t = 8, and K1/K2 at every 7B projection and the head,
+   against their plain versions;
 12. serves two rounds of 16 requests through `LLM(max_batch=16,
    max_seq=4096)`, 32 greedy tokens each: round A (prompts of 5..440
    tokens, every decode step at span <= 512: K1-K4) and round B (600..3,900
    tokens: prefill crosses every span bucket, decode runs at span 4096 on
-   K3 + K9), every logit finite;
+   K9 with the insert fused in), every logit finite;
 13. times a 16-slot decode step at span 512 and at span 4096 (host clock
    and `torch.profiler`: device time, K9 per layer beside its bound; 32
-   K4 launches per step at span 512 required) and a 512-token prefill
-   chunk;
+   K4 launches per step at span 512 required, 32 K9 and no K3 launches
+   at span 4096) and a 512-token prefill chunk;
 14. checks 2 layers against the CPU run of the same port: the logits of a
    16-token prefill, then a 2,100-token prefill on the card whose cache
    is copied to the CPU, and one t = 1 and one t = 8 step at span 4096 on
-   both (1e-2 of max|ref|); the card's t = 1 step must launch K9 and no
-   K4, its t = 8 step neither (the f32 arm).
+   both (1e-2 of max|ref|); the card's t = 1 step must launch K9 and
+   neither K3 nor K4, its t = 8 step neither K4 nor K9 (the f32 arm).
 
 `--profile` instead splits a 16-slot decode step of the Q5_K_M
 checkpoint with bf16 activations and under act_quant (host clock and
@@ -141,7 +144,10 @@ iq4_xs_2l|q4_0|q8_0|q4km]` instead splits that checkpoint's decode step
 with bf16 activations (twice; the Q2_K mix by default) and times its
 512-token prefill chunk, as b. does, and checks nothing; copied beside an
 earlier tree of the port it measures that tree, so two trees compare in
-one call.
+one call. `--tiled-split` instead times K9 alone at its headline shape
+and at long spans of Llama-3 geometries (CUDA events, and
+`torch.profiler` device time by kernel name), and checks it against its
+plain version; it too imports nothing an earlier tree lacks.
 
 Prints the card's name and power limit, a per-shape table, seconds per
 phase and in total, one JSON line {"kernels": [...]} (per kernel its
@@ -159,6 +165,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import os
 import subprocess
@@ -186,7 +193,8 @@ from gguf_tpu_torch.ops.activation import (fake_quantize_q8_1,
                                            quantize_q8_1_codes,
                                            quantize_q8_1_codes_plain,
                                            rms_norm, rms_norm_plain)
-from gguf_tpu_torch.ops.attention import (_attend_cuda, decode_attention,
+from gguf_tpu_torch.ops.attention import (PALLAS_ATTN_MAX_ELEMS,
+                                          _attend_cuda, decode_attention,
                                           decode_attention_plain,
                                           decode_attention_tiled,
                                           decode_attention_tiled_plain,
@@ -204,6 +212,9 @@ from gguf_tpu_torch.ops.mmq_q6_k import mmq_q6_k, mmq_q6_k_plain
 from gguf_tpu_torch.ops.mmq_q8_0 import mmq_q8_0, mmq_q8_0_plain
 from gguf_tpu_torch.quant import QUANTIZERS, QuantWeight
 from gguf_tpu_torch.quant.layouts import q2_k_parts
+
+# the module (the package re-exports its functions), for K9's plan
+attention_mod = importlib.import_module("gguf_tpu_torch.ops.attention")
 
 # TinyLlama-1.1B (benchmarks/suite.py): vocab 32000, dim 2048, 22 layers,
 # 32 heads, 4 KV heads (head_dim 64), ffn 5632
@@ -227,6 +238,14 @@ ROUND_B = (600, 800, 1000, 1200, 1400, 1700, 2000, 2100, 2300, 2600, 2900,
            3100, 3300, 3500, 3700, 3900)
 LONG_PROMPT = 2100             # the long-span reference check's prefill
 TILED_SPANS = (1024, 2048, 4096)
+# K9 at the long spans of Llama-3 geometries (meta-llama config.json: 8 KV
+# heads; Llama-3.1-8B 32 heads of 128, Llama-3.1-70B 64 of 128,
+# Llama-3.2-1B 32 of 64; context 131072), where a slice of 8 CTAs outgrows
+# shared memory at G > 1 and K9 walks it in sub-slices: (label, KV heads,
+# query heads per KV head, hd, span)
+TILED_LONG = (("llama-3.1-8b", 8, 4, 128, 65536),
+              ("llama-3.1-70b", 8, 8, 128, 131072),
+              ("llama-3.2-1b", 8, 4, 64, 131072))
 MMQ_NS = (1, 16, 512)
 # the tensor-core tiles (K1, K2, K8 and K11-K14 "fast"): both sides of every
 # tile width of their dispatch (8 | 16 | 64 | 128 activation rows, 64 then
@@ -289,7 +308,7 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                "gguf_tpu/ops/mmq_q4_k.py:268"),
     "mmq_q5_k": ("gguf_tpu_torch/csrc/mmq_q5_k.cu",
                  "gguf_tpu/ops/mmq_q5_k.py:65"),
-    "decode_attention_tiled": ("gguf_tpu_torch/csrc/attention.cu",
+    "decode_attention_tiled": ("gguf_tpu_torch/csrc/attention_tiled.cu",
                                "gguf_tpu/ops/attention.py:369"),
     "mmq_q8_0": ("gguf_tpu_torch/csrc/mmq_q8_0.cu",
                  "gguf_tpu/ops/mmq_q8_0.py:64"),
@@ -337,8 +356,7 @@ Q5KM_BF16_KERNELS = ("mmq_q5_k", "mmq_q6_k", "kv_cache_insert",
 MMQ_KERNELS = ("mmq_q4_k", "mmq_q6_k", "mmq_i8", "mmq_q5_k", "mmq_q8_0",
                "mmq_legacy", "mmq_q2_k", "mmq_q3_k", "mmq_iq4")
 ROUND_A_KERNELS = Q4KM_KERNELS
-ROUND_B_KERNELS = ("mmq_q4_k", "mmq_q6_k", "kv_cache_insert",
-                   "decode_attention_tiled")
+ROUND_B_KERNELS = ("mmq_q4_k", "mmq_q6_k", "decode_attention_tiled")
 # the (decode-width) shape whose times stand in the {"kernels": ...} line
 HEADLINE = {"mmq_q4_k": "gate_up 11264x2048 n=16",
             "mmq_q6_k": "head 32000x2048 n=16",
@@ -871,37 +889,71 @@ def _tiled_positions(gen: torch.Generator, b: int, s: int) -> torch.Tensor:
     return pos
 
 
-def compare_tiled(gen: torch.Generator, rep: Report) -> None:
+def _tiled_work(q, cache, pos, span: int, prec: str) -> tuple:
+    """Bytes and operations K9 needs: q and the output, the live K/V rows
+    and their scales."""
+    h, hd = q.shape[1], q.shape[3]
+    kvh = cache[0].shape[1]
+    rows = live_rows(pos, span)
+    n = 2 * q.numel() * 4 + rows * kvh * 2 * (hd + 4)
+    return n, 4.0 * rows * h * hd, "bf16" if prec == "fast" else "f32"
+
+
+def _tiled_headline(seed: int) -> tuple:
+    """K9's headline inputs (cache, pos, q) at the 7B geometry: 16 slots,
+    32 heads of 128, a 4096-row cache, `_tiled_positions`; from a generator
+    of their own, so that `compare_tiled` and `--tiled-split` time the same
+    positions."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    b, h, kvh, hd = MAX_BATCH, CFG7B.n_heads, CFG7B.n_kv_heads, CFG7B.head_dim
+    cache = _random_cache(gen, b, kvh, SEQ7B, hd)
+    pos = _tiled_positions(gen, b, SEQ7B)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=DEVICE)
+    return cache, pos, q
+
+
+def compare_tiled(gen: torch.Generator, rep: Report, seed: int) -> None:
     """K9 against its plain version within TOL_ATTN, "fast" and "high": at
     the 7B geometry (16 slots, 32 heads and 32 KV heads of 128, a 4096-row
-    cache) for spans 1024, 2048, 4096, and with window 64 + softcap 8.0;
-    at the TinyLlama geometry (32 heads over 4 KV heads of 64) at span
-    2048. The 4096 "fast" case is the headline: its bound counts the
-    live rows of these positions."""
+    cache, `_tiled_headline(seed)`) for spans 1024, 2048, 4096, with window
+    64 + softcap 8.0, at one slot (32 clusters, fewer than the SMs) and
+    with the fused t = 1 insert as a decode step runs it
+    (`decode_attention_update`, the cache bit-equal to K3's plain insert,
+    at spans 4096 and 1024); at the TinyLlama geometry (32 heads over 4 KV
+    heads of 64) at span 2048, read only and with the insert. The 4096
+    "fast" case is the headline: its bound counts the live rows of these
+    positions. Then `compare_tiled_long`, and K4 at 16 query heads per KV
+    head, t = 8, hd 128 (its query tile past 48 KB)."""
     cases = [(CFG7B, SEQ7B, TILED_SPANS, "b16 h32 hd128"),
              (CFG, MAX_SEQ, (2048,), "b16 h32 kvh4 hd64")]
     b = MAX_BATCH
     for cfg, s, spans, label in cases:
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        cache = _random_cache(gen, b, kvh, s, hd)
-        pos = _tiled_positions(gen, b, s)
-        q = torch.randn((b, h, 1, hd), generator=gen, device=DEVICE)
+        if cfg is CFG7B:
+            cache, pos, q = _tiled_headline(seed)
+        else:
+            cache = _random_cache(gen, b, kvh, s, hd)
+            pos = _tiled_positions(gen, b, s)
+            q = torch.randn((b, h, 1, hd), generator=gen, device=DEVICE)
+        kn = torch.randn((b, kvh, 1, hd), generator=gen, device=DEVICE) * 2
+        vn = torch.randn((b, kvh, 1, hd), generator=gen, device=DEVICE)
         for span in spans:
             for prec in ("fast", "high"):
                 kw = dict(precision=prec, span=span)
                 err, rel = rel_err(
                     decode_attention_tiled(q, *cache, pos, **kw),
                     decode_attention_tiled_plain(q, *cache, pos, **kw))
-                rows = live_rows(pos, span)
-                work = (2 * q.numel() * 4 + rows * kvh * 2 * (hd + 4),
-                        4.0 * rows * h * hd, "bf16" if prec == "fast" else "f32")
                 rep.add("decode_attention_tiled", f"{label} span={span} {prec}",
                         err, rel, TOL_ATTN,
                         lambda: decode_attention_tiled(q, *cache, pos, **kw),
                         lambda: decode_attention_tiled_plain(q, *cache, pos,
                                                              **kw),
-                        work=work,
+                        work=_tiled_work(q, cache, pos, span, prec),
                         library=lambda: sdpa_library(q, cache, pos, span, prec))
+                if cfg is CFG7B and span in (1024, s) or cfg is CFG:
+                    tiled_insert_case(rep, q, kn, vn, cache, pos, span, prec,
+                                      f"{label} span={span} {prec} insert")
         if cfg is CFG7B:
             # K4's single-tile form on the same cache and positions at the
             # span where the routing takes K9 instead: what K9 replaces
@@ -921,6 +973,183 @@ def compare_tiled(gen: torch.Generator, rep: Report) -> None:
                                                             **wkw))
             rep.add("decode_attention_tiled",
                     f"{label} span={s} window+softcap", err, rel, TOL_ATTN)
+            # one slot: 32 (slot, head) clusters, fewer than the SMs
+            one = [c[:1] for c in cache]
+            for prec in ("fast", "high"):
+                kw = dict(precision=prec, span=s)
+                err, rel = rel_err(
+                    decode_attention_tiled(q[:1], *one, pos[-2:-1], **kw),
+                    decode_attention_tiled_plain(q[:1], *one, pos[-2:-1],
+                                                 **kw))
+                rep.add("decode_attention_tiled", f"b1 h32 hd128 span={s} "
+                        f"{prec}", err, rel, TOL_ATTN,
+                        lambda: decode_attention_tiled(q[:1], *one,
+                                                       pos[-2:-1], **kw),
+                        lambda: decode_attention_tiled_plain(
+                            q[:1], *one, pos[-2:-1], **kw),
+                        work=_tiled_work(q[:1], one, pos[-2:-1], s, prec))
+            # the sub-slice walk at G = 1, with the insert: the plan's
+            # clusters, 128 rows held (a span this model never reaches
+            # would take it)
+            real = attention_mod.k9_plan
+            attention_mod.k9_plan = lambda *a: (real(*a)[0], 128)
+            try:
+                for prec in ("fast", "high"):
+                    tiled_insert_case(rep, q, kn, vn, cache, pos, s, prec,
+                                      f"{label} span={s} held=128 {prec} "
+                                      "insert")
+            finally:
+                attention_mod.k9_plan = real
+    compare_tiled_long(gen, rep)
+    # K4 at G = 16, t = 8, hd 128: 128 query rows, a 186,640-byte block
+    g, kvh, hd, s, t = 16, 8, 128, 512, 8
+    cache = _random_cache(gen, b, kvh, s, hd)
+    p = torch.randint(0, s - t + 1, (b,), generator=gen, device=DEVICE,
+                      dtype=torch.int32)
+    p[0], p[1], p[-1] = 0, s - t, s
+    for prec in ("fast", "high"):
+        q = torch.randn((b, g * kvh, t, hd), generator=gen, device=DEVICE)
+        kw = dict(t=t, precision=prec, span=s)
+        err, rel = rel_err(decode_attention(q, *cache, p, **kw),
+                           decode_attention_plain(q, *cache, p, **kw))
+        rep.add("decode_attention", f"b16 g16 kvh8 hd128 t={t} span={s} "
+                f"{prec}", err, rel, TOL_ATTN)
+
+
+def compare_tiled_long(gen: torch.Generator, rep: Report) -> None:
+    """K9 at TILED_LONG's geometries, 4 slots at positions 5000 and 12000
+    (within one sub-slice of a CTA's slice or across two), span - 1 and
+    span (inactive: every row live), against its plain version within
+    TOL_ATTN, "fast" and "high", timed against it; at Llama-3.1-8B's also
+    with window 60000 + softcap 30 and with the fused insert (the cache
+    bit-equal to K3's)."""
+    b = 4
+    for label, kvh, g, hd, span in TILED_LONG:
+        cache = _random_cache(gen, b, kvh, span, hd)
+        pos = torch.tensor([5000, 12000, span - 1, span], dtype=torch.int32,
+                           device=DEVICE)
+        q = torch.randn((b, kvh * g, 1, hd), generator=gen, device=DEVICE)
+        clusters, held = attention_mod.k9_plan(
+            b, kvh, g, span, hd, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        shape = f"{label} b{b} g{g} hd{hd} span={span}"
+        log(f"  K9 {shape}: {clusters} CTAs per cluster, slices of "
+            f"{-(-span // clusters)} rows, {held} held")
+        for prec in ("fast", "high"):
+            kw = dict(precision=prec, span=span)
+            err, rel = rel_err(decode_attention_tiled(q, *cache, pos, **kw),
+                               decode_attention_tiled_plain(q, *cache, pos,
+                                                            **kw))
+            rep.add("decode_attention_tiled", f"{shape} {prec}", err, rel,
+                    TOL_ATTN,
+                    lambda: decode_attention_tiled(q, *cache, pos, **kw),
+                    lambda: decode_attention_tiled_plain(q, *cache, pos,
+                                                         **kw))
+        if label == "llama-3.1-8b":
+            wkw = dict(precision="fast", span=span, window=60000,
+                       softcap=30.0)
+            err, rel = rel_err(decode_attention_tiled(q, *cache, pos, **wkw),
+                               decode_attention_tiled_plain(q, *cache, pos,
+                                                            **wkw))
+            rep.add("decode_attention_tiled", f"{shape} window+softcap", err,
+                    rel, TOL_ATTN)
+            kn = torch.randn((b, kvh, 1, hd), generator=gen,
+                             device=DEVICE) * 2
+            vn = torch.randn((b, kvh, 1, hd), generator=gen, device=DEVICE)
+            for prec in ("fast", "high"):
+                tiled_insert_case(rep, q, kn, vn, cache, pos, span, prec,
+                                  f"{shape} {prec} insert")
+        del cache
+        torch.cuda.empty_cache()
+
+
+def tiled_insert_case(rep: Report, q, kn, vn, cache, pos, span: int,
+                      prec: str, shape: str) -> None:
+    """K9 with the fused t = 1 insert against K3's plain insert followed by
+    K9's plain version: the cache bit-equal, the output within TOL_ATTN.
+    Where the routing takes K9 at t = 1 the call is
+    `decode_attention_update`, as a decode step makes it; elsewhere (the
+    TinyLlama geometry) the wrapper's launcher directly (imported here:
+    `--tiled-split` runs on trees that lack it)."""
+    from gguf_tpu_torch.ops.attention import _tiled_cuda
+
+    kvh, hd = cache[0].shape[1], cache[0].shape[3]
+    got = [c.clone() for c in cache]
+    ref = [c.clone() for c in cache]
+    kw = dict(precision=prec, span=span)
+    if kvh * span * hd > PALLAS_ATTN_MAX_ELEMS:
+        out = decode_attention_update(q, kn, vn, *got, pos, t=1, **kw)[0]
+    else:
+        out = _tiled_cuda(q, kn, vn, *got, pos, window=0, softcap=0.0, **kw)
+    kv_cache_insert_plain(kn, vn, *ref, pos)
+    for g, r in zip(got, ref):
+        if not torch.equal(g, r):
+            raise AssertionError(f"decode_attention_tiled {shape}: cache "
+                                 "differs from K3's")
+    err, rel = rel_err(out, decode_attention_tiled_plain(q, *ref, pos, **kw))
+    rep.add("decode_attention_tiled", shape, err, rel, TOL_ATTN)
+
+
+def _time_tiled(label: str, q, cache, pos, span: int, prec: str) -> None:
+    """One K9 shape of `tiled_split`: checked against the plain version,
+    CUDA-event time over 20 calls, and profiler device time per call (per
+    kernel name its mean time per launch times its launches per call,
+    from the window of three with the most device events: a window can
+    miss a few events) beside the bound."""
+    kw = dict(precision=prec, span=span)
+
+    def fn():
+        return decode_attention_tiled(q, *cache, pos, **kw)
+
+    rel = rel_err(fn(), decode_attention_tiled_plain(q, *cache, pos, **kw))[1]
+    if rel > TOL_ATTN:
+        raise AssertionError(f"K9 {label} {prec}: rel err {rel} > {TOL_ATTN}")
+    ms = cuda_ms(fn)
+    best = []
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if sum(e.count for e in kern) > sum(e.count for e in best):
+            best = kern
+    per = [(e.self_device_time_total / e.count / 1e3, round(e.count / 20),
+            e.key) for e in best]
+    bound = bound_ms(*_tiled_work(q, cache, pos, span, prec))
+    log(f"K9 {label} span={span} {prec}: rel err {rel:.2e}, events "
+        f"{ms:.4f} ms, device {sum(t * n for t, n, _ in per):.4f} ms, bound "
+        f"{bound[0]:.4f} ms by {bound[1]}; by kernel per call:")
+    for t, n, key in sorted(per, key=lambda x: -x[0] * x[1]):
+        log(f"  {t * n:.4f} ms {n}x {key[:90]}")
+
+
+def tiled_split(seed: int) -> None:
+    """K9 alone: at its headline shape and positions (`_tiled_headline`,
+    as `compare_tiled` draws them), "fast" and "high"; then "fast" at
+    TILED_LONG's geometries with `compare_tiled_long`'s positions, and at
+    Llama-3.1-8B's with 16 slots at span 8192 (every row live), both
+    seeded from `seed`. Imports nothing an earlier tree lacks, so it times
+    an unpacked parent tree too."""
+    cache, pos, q = _tiled_headline(seed)
+    for prec in ("fast", "high"):
+        _time_tiled(f"b{q.shape[0]} h{q.shape[1]} hd{q.shape[3]}", q, cache,
+                    pos, SEQ7B, prec)
+    del cache
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    for label, kvh, g, hd, span in TILED_LONG + (
+            ("llama-3.1-8b b16", 8, 4, 128, 8192),):
+        b = 16 if label.endswith("b16") else 4
+        cache = _random_cache(gen, b, kvh, span, hd)
+        pos = (torch.full((b,), span - 1, dtype=torch.int32, device=DEVICE)
+               if b == 16 else torch.tensor([5000, 12000, span - 1, span],
+                                            dtype=torch.int32, device=DEVICE))
+        q = torch.randn((b, kvh * g, 1, hd), generator=gen, device=DEVICE)
+        _time_tiled(f"{label} g{g} hd{hd}", q, cache, pos, span, "fast")
+        del cache
+        torch.cuda.empty_cache()
 
 
 def _q8_1_input(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
@@ -1550,7 +1779,8 @@ def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
 def require_step(per_step: dict, want: dict) -> None:
     """Fail unless a decode step launched each kernel in `want` exactly
     that many times (the wrappers' launches per step)."""
-    bad = {k: per_step.get(k) for k, n in want.items() if per_step.get(k) != n}
+    bad = {k: per_step.get(k, 0) for k, n in want.items()
+           if per_step.get(k, 0) != n}
     if bad:
         raise AssertionError(f"launches per decode step {bad}, want {want}")
 
@@ -1631,6 +1861,9 @@ def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
                                       gen)
         if span == 512:     # within the single-tile envelope: K4 per layer
             require_step(per_step, {"decode_attention": layers})
+        else:               # past it: K9 per layer, the insert fused in
+            require_step(per_step, {"decode_attention_tiled": layers,
+                                    "kv_cache_insert": 0})
         tiled = sum(e.self_device_time_total for e in kern
                     if "tiled_" in e.key) / 4 / layers / 1e3
         if span == SEQ7B:
@@ -1647,12 +1880,13 @@ def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
 
 
 def long_span_check(cpu: tuple, llm: LLM, seed: int) -> None:
-    """The t = 1 route past the envelope (K3 + K9) and the t = 8 f32 arm,
+    """The t = 1 route past the envelope (K9, the insert fused in) and the
+    t = 8 f32 arm,
     2 layers, card vs the CPU port: the card prefills LONG_PROMPT tokens
     into a one-slot 4,096-row cache in 512-token chunks; the cache is
     copied to the CPU; one t = 1 and one t = 8 step at span 4096 run on
     both, logits within TOL_LOGITS. The card's t = 1 step must launch K9
-    and no K4, its t = 8 step neither."""
+    and neither K3 nor K4, its t = 8 step neither K4 nor K9."""
     cfg, params = cpu
     card = _first_layers(llm.params, 2)
     host = _first_layers(params, 2)
@@ -1684,9 +1918,10 @@ def long_span_check(cpu: tuple, llm: LLM, seed: int) -> None:
             f" launches K3 {launches['kv_cache_insert']}, K4 {k4}, K9 {k9}")
         if not torch.isfinite(got).all() or rel > TOL_LOGITS:
             raise AssertionError(f"long-span t={t}: card disagrees with CPU")
-        if k4 or (k9 > 0) != (t == 1):
+        k3 = launches["kv_cache_insert"]
+        if k4 or (k9 > 0) != (t == 1) or (t == 1 and k3):
             raise AssertionError(f"long-span t={t} took the wrong route: "
-                                 f"K4 {k4}, K9 {k9}")
+                                 f"K3 {k3}, K4 {k4}, K9 {k9}")
         p += t
 
 
@@ -1700,6 +1935,9 @@ def main() -> int:
                     help="split a checkpoint's decode step and prefill chunk "
                     "(bf16 activations; default the Q2_K mix) instead of the "
                     "smoke run")
+    ap.add_argument("--tiled-split", action="store_true",
+                    help="time K9 alone at its headline shape and long "
+                    "spans, by kernel, instead of the smoke run")
     ap.add_argument("--write", choices=sorted(CHECKPOINTS),
                     help=argparse.SUPPRESS)   # a checkpoint writer's child
     args = ap.parse_args()
@@ -1719,6 +1957,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     check_toolchain()
+    if args.tiled_split:
+        tiled_split(args.seed)
+        return 0
     with phase("build the GGUF quantizer core"):
         build.build("gguf_kquant")     # before the writers that use it
     writers = Writers(args.seed, ("q5km",) if args.profile else
@@ -2063,7 +2304,7 @@ def smoke(seed: int, writers: Writers) -> list:
     with phase("K9, and K3/K4 at hd 128, vs plain"):
         hbm = hbm_read_gbs()
         log(f"HBM read (x.sum() of 4 GiB f32): {hbm:.0f} GB/s")
-        compare_tiled(gen, rep)
+        compare_tiled(gen, rep, seed)
         compare_attention(gen, rep, h=CFG7B.n_heads, kvh=CFG7B.n_kv_heads,
                           hd=CFG7B.head_dim, s=SEQ7B, spans=ATTN_SPANS_7B,
                           tag="kvh32 hd128 ")

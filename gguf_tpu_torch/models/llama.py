@@ -24,7 +24,6 @@ import torch.nn.functional as F
 
 from ..ops import MMQ
 from ..ops.attention import (PALLAS_ATTN_MAX_ELEMS, TILE,
-                             decode_attention_tiled,
                              decode_attention_update, kv_cache_insert,
                              quantize_kv)
 from ..quant.layouts import QuantWeight, concat_m
@@ -156,10 +155,11 @@ def attention(layer, x, cfg: LlamaConfig, cache_l: dict, pos, opts: MMOpts,
 
     The reference's three routes, on its conditions: within the
     single-tile envelope (KVH * span * hd <= PALLAS_ATTN_MAX_ELEMS) and
-    t <= 8, cache insert + K4 (one fused launch at t = 1); past it at
-    t = 1 with span a multiple of 256, the K3 insert then K9 (tiled
-    flash-decoding); otherwise the K3 insert (t <= 16) or the plain
-    `_cache_update`, then plain f32 attention over the span."""
+    t <= 8, cache insert + K4; past it at t = 1 with span a multiple of
+    256, cache insert + K9 (tiled flash-decoding); on the card both are one
+    launch at t = 1 with the insert fused in (`decode_attention_update`).
+    Otherwise the K3 insert (t <= 16) or the plain `_cache_update`, then
+    plain f32 attention over the span."""
     b, t, _ = x.shape
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     xf = x.reshape(b * t, -1)
@@ -182,17 +182,12 @@ def attention(layer, x, cfg: LlamaConfig, cache_l: dict, pos, opts: MMOpts,
                         cache_l["v_scale"])
     s_cache = ck.shape[2]
     span_eff = s_cache if span is None else min(span, s_cache)
-    if t <= 8 and kvh * span_eff * hd <= PALLAS_ATTN_MAX_ELEMS:
+    if (t <= 8 and kvh * span_eff * hd <= PALLAS_ATTN_MAX_ELEMS
+            or t == 1 and span_eff % TILE == 0):
         out = decode_attention_update(
             q.transpose(1, 2), k.transpose(1, 2).float(),
             v.transpose(1, 2).float(), ck, cks, cv, cvs, pos, t=t,
-            precision=opts.precision, span=span)[0]
-        out = out.transpose(1, 2).reshape(b * t, h * hd)
-    elif t == 1 and span_eff % TILE == 0:
-        kv_cache_insert(k.transpose(1, 2).float(), v.transpose(1, 2).float(),
-                        ck, cks, cv, cvs, pos)
-        out = decode_attention_tiled(q.transpose(1, 2), ck, cks, cv, cvs, pos,
-                                     precision=opts.precision, span=span_eff)
+            precision=opts.precision, span=span_eff)[0]
         out = out.transpose(1, 2).reshape(b * t, h * hd)
     else:
         if t <= 16:

@@ -23,6 +23,7 @@ import torch
 
 from ..gguf import (GGML_TO_FMT, GGMLType, GGUFReader, quantize_tensor,
                     write_gguf)
+from ..ops.attention import HEAD_DIMS
 from ..quant.layouts import QuantWeight
 from .config import LlamaConfig
 
@@ -73,6 +74,16 @@ def check_forward_computes(cfg: LlamaConfig) -> None:
             raise NotImplementedError(f"{f.name} = {value!r}: {_NOT_PORTED}")
 
 
+def check_device_computes(cfg: LlamaConfig, device_type: str) -> None:
+    """Raise NotImplementedError naming the head dim when the card's
+    attention kernels (K3, K4, K9: hd in HEAD_DIMS) cannot compute it and
+    the model is bound for `cuda`; the CPU's plain path computes any."""
+    if device_type == "cuda" and cfg.head_dim not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"head_dim = {cfg.head_dim}: the port's CUDA attention kernels "
+            f"take head dims {HEAD_DIMS} (ROADMAP.md, queue 1, items 3 and 8)")
+
+
 def check_tensors_loaded(names, cfg: LlamaConfig) -> None:
     """Raise NotImplementedError naming the first tensor `load_llama` would
     not load (biases, fused qkv, q/k norms, experts, position_embd, ...)."""
@@ -88,7 +99,9 @@ def check_tensors_loaded(names, cfg: LlamaConfig) -> None:
 def load_llama(path: str, device):
     """Load a llama-architecture GGUF onto `device`: (cfg, params). A file
     whose config or tensors the port's forward would ignore is refused with
-    NotImplementedError before any weight is loaded."""
+    NotImplementedError before any weight is loaded, and so is one whose
+    head dim the card's attention kernels do not take when `device` is
+    cuda."""
     device = torch.device(device)
     with GGUFReader(path) as reader:
         arch = reader.metadata.get("general.architecture", "llama")
@@ -98,6 +111,7 @@ def load_llama(path: str, device):
                 "queue 1: remaining model families)")
         cfg = LlamaConfig.from_gguf_metadata(reader.metadata)
         check_forward_computes(cfg)
+        check_device_computes(cfg, device.type)
         check_tensors_loaded(reader.tensors, cfg)
         if "rope_freqs.weight" in reader.tensors:
             cfg = dataclasses.replace(cfg, rope_freq_factors=tuple(

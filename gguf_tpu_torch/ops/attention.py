@@ -5,7 +5,9 @@ Counterpart of `gguf_tpu/ops/attention.py`: `kv_cache_insert` (Pallas
 `_insert_kernel`), `decode_attention` (`_attn_kernel`),
 `decode_attention_tiled` (`_attn_tiled_kernel`) and
 `decode_attention_update` (the split pair, or `_fused_attn_kernel` at
-t = 1). The CUDA source is `gguf_tpu_torch/csrc/attention.cu`.
+t = 1). The CUDA sources are `gguf_tpu_torch/csrc/attention.cu` (K3, K4)
+and `csrc/attention_tiled.cu` (K9), sharing the row quantizer of
+`csrc/kv_quant.cuh`.
 
 Routing follows the reference: at t = 1, once KVH * span * hd exceeds
 `PALLAS_ATTN_MAX_ELEMS` and span is a multiple of 256, `decode_attention`
@@ -30,11 +32,17 @@ K4 is one launch per call: a thread-block cluster of `k4_plan`'s size per
 t - 1) across its CTAs and their warps, merges the rows' max and sum over
 the cluster before any p is formed (the reference's two-pass softmax), and
 adds the partial outputs in a fixed order (csrc/attention.cu says how).
+K9 is one launch per call too: a cluster of `k9_plan`'s size per (batch,
+KV head) splits the live rows, streams them through a ring of bulk copies
+and merges the reference's per-tile running max over the cluster
+(csrc/attention_tiled.cu says how). On the card the t = 1 insert is fused
+into whichever of K4 and K9 the step takes: K3 runs on its own only for t
+> 1.
 
 `kv_cache_insert.launches` counts K3 launches,
 `decode_attention.launches` counts K4 launches, whether K4 runs read-only
 or with its fused t = 1 insert, and `decode_attention_tiled.launches`
-counts K9 calls (each is three CUDA launches: scores, p . v, combine).
+counts K9 launches likewise.
 """
 
 from __future__ import annotations
@@ -54,8 +62,10 @@ _SIG = {
     "kv_cache_insert_launch": [_VP] * 7 + [_I] * 5 + [_VP],
     "decode_attention_launch": [_VP] * 9 + [_I] * 7 + [_F, _F] + [_I] * 4
     + [_VP],
-    "decode_attention_tiled_launch": [_VP] * 8 + [_I] * 6
-    + [_F, _F, _I, _I, _VP],
+}
+_SIG_TILED = {
+    "decode_attention_tiled_launch": [_VP] * 9 + [_I] * 6 + [_F, _F]
+    + [_I] * 5 + [_VP],
 }
 HEAD_DIMS = (64, 128)
 # single-tile envelope (cache elements per batch element) past which the
@@ -65,7 +75,12 @@ PALLAS_ATTN_MAX_ELEMS = 2 ** 21
 TILE = 256                  # cache rows per tile of the tiled form
 K4_WARPS = 8                # warps per CTA of K4 (csrc/attention.cu)
 K4_MAX_CLUSTER = 4          # CTAs per (batch, KV head)
-K4_SMEM = 232448            # shared memory a block can use on an H100
+K4_SMEM = 232448            # shared memory a block can use on an H100 (K4, K9)
+K9_SHARE = 233472 // 2 - 1024  # what lets two blocks share an H100 SM
+K9_STAGES, K9_CHUNK = 3, 64  # K9's ring: stages of cache rows (attention_tiled.cu)
+K9_GB = 8                   # K9's query rows per p . v block where G > 1
+K9_MAX_CLUSTER = 8
+K9_SPLIT_SPAN = 1024        # spans above it take at least 2 K9 CTAs per cluster
 
 
 def quantize_kv(x: torch.Tensor):
@@ -78,6 +93,16 @@ def quantize_kv(x: torch.Tensor):
 
 def _lib():
     return build.load("attention", _SIG)
+
+
+def _lib_tiled():
+    return build.load("attention_tiled", _SIG_TILED)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Does this call launch kernels (a CUDA tensor) rather than the plain
+    versions (a CPU one)?"""
+    return x.device.type == "cuda"
 
 
 def _check_cache(k, k_scale, v, v_scale, pos):
@@ -237,8 +262,10 @@ def _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *, t,
         raise ValueError(f"q {tuple(q.shape)} vs cache {tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention: hd must be in {HEAD_DIMS}, got {hd}")
-    if (h // kvh) * t * hd * 4 > 48 * 1024:
-        raise ValueError("decode_attention: g*t*hd exceeds the query tile")
+    if k4_smem_bytes((h // kvh) * t, hd, 32) > K4_SMEM:
+        raise ValueError(f"decode_attention: {(h // kvh) * t} query rows of "
+                         f"{hd} and a 32-key tile exceed {K4_SMEM} bytes of "
+                         "shared memory")
     span = s if span is None else min(span, s)
     qf = q.float().contiguous()
     p = pos.to(torch.int32).contiguous()
@@ -300,15 +327,21 @@ def decode_attention_update(q, k_new, v_new, k, k_scale, v, v_scale, pos,
                             span: int | None = None, window: int = 0,
                             softcap: float = 0.0):
     """Insert t new K/V rows, then attend: (out, k, k_scale, v, v_scale).
-    On the card t = 1 is ONE K4 launch (insert fused in), or K3 then K9
-    past the single-tile envelope; t > 1 is K3 then K4."""
-    if q.device.type == "cuda" and t == 1 and not _takes_tiled(k, t, span):
+    On the card t = 1 is ONE launch with the insert fused in: K4, or K9
+    past the single-tile envelope; t > 1 is K3 then K4. On the CPU the
+    plain insert, then the plain attention of the same route."""
+    if _on_card(q) and t == 1:
         b, kvh, _, hd = k.shape
         _check_new(k_new, b, kvh, 1, hd)
         _check_new(v_new, b, kvh, 1, hd)
-        out = _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos,
-                           t=1, precision=precision, span=span,
-                           window=window, softcap=softcap)
+        kw = dict(precision=precision, span=span, window=window,
+                  softcap=softcap)
+        if _takes_tiled(k, t, span):
+            out = _tiled_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos,
+                              **kw)
+        else:
+            out = _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos,
+                               t=1, **kw)
         return out, k, k_scale, v, v_scale
     kv_cache_insert(k_new, v_new, k, k_scale, v, v_scale, pos)
     out = decode_attention(q, k, k_scale, v, v_scale, pos, t=t,
@@ -361,14 +394,58 @@ def decode_attention_tiled_plain(q, k, k_scale, v, v_scale, pos, *,
     return (acc / l).reshape(b, h, 1, hd)
 
 
-def decode_attention_tiled(q, k, k_scale, v, v_scale, pos, *,
-                           precision: str = "fast", span: int | None = None,
-                           window: int = 0, softcap: float = 0.0):
-    """Single-token GQA attention over the first `span` cache rows in
-    256-row tiles (span a multiple of 256): the contract of
-    `decode_attention` at t = 1, for spans past the single-tile envelope.
-    q (B, H, 1, hd) with rope applied; returns (B, H, 1, hd) float32. On
-    the card one call is K9's split-span grid (three launches)."""
+def k9_smem_bytes(g: int, rows: int, hd: int, held: int | None = None) -> int:
+    """K9's dynamic shared memory for G query rows, slices of at most
+    `rows` cache rows and `held` of them (all by default) in shared memory
+    at a time (csrc/attention_tiled.cu: TiledSmem)."""
+    def up4(n):
+        return (n + 3) & ~3
+    rb = 1 if g == 1 else K9_GB
+    ntl = rows // TILE + 2
+    held = rows if held is None else min(held, rows)
+    return (K9_STAGES * K9_CHUNK * hd + 8 * K9_STAGES + 8 * (K9_STAGES % 2) + 4 * g * hd
+            + 4 * (2 + g) * up4(held) + 3 * 4 * up4(g * ntl)
+            + 4 * 3 * K9_MAX_CLUSTER * g + 4 * K4_WARPS * rb * hd
+            + 4 * up4(K4_WARPS * rb) + 4 * up4(g * hd + K9_MAX_CLUSTER)
+            + 2 * hd + 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def k9_plan(b: int, kvh: int, g: int, span: int, hd: int, sms: int) -> tuple:
+    """(clusters, rows held) of K9 for B slots over KVH heads of hd, G
+    query heads per KV head and `span` cache rows, on `sms` SMs. The
+    cluster is the smallest power of two up to K9_MAX_CLUSTER that has 2
+    CTAs or more where span > K9_SPLIT_SPAN, whose B * KVH clusters' CTAs
+    cover the SMs, and whose slices' scores fit in shared memory if 8 CTAs
+    can make them fit. A CTA costs a few microseconds of its own (the
+    first copies' latency, the cluster barriers), so few, long CTAs win
+    until the longest slot's tail takes over: on the H100 at Llama-2-7B's
+    16 slots (the one shape this was tuned at) 1 CTA timed best at span
+    1024 and 2 at 2048 and 4096 (4 lost at both). The rows held are the
+    whole slice, ceil(span / clusters), where its scores fit; else the
+    kernel walks the slice in sub-slices (and scores each twice) of the
+    most rows, a multiple of K9_CHUNK, that let two CTAs share an SM
+    (K9_SHARE; 25-35% faster than one CTA holding more at Llama-3's
+    geometries on the H100), or failing that of what fits at all: 0 where
+    not even K9_CHUNK rows fit. Cached per shape."""
+    c = 1
+    while c < K9_MAX_CLUSTER and (
+            c == 1 and span > K9_SPLIT_SPAN or b * kvh * c < sms
+            or k9_smem_bytes(g, -(-span // c), hd) > K4_SMEM):
+        c *= 2
+    rows = -(-span // c)
+    if k9_smem_bytes(g, rows, hd) <= K4_SMEM:
+        return c, rows
+    fixed = k9_smem_bytes(g, rows, hd, 0)
+    for room in (K9_SHARE, K4_SMEM):
+        held = (room - fixed) // (4 * (2 + g)) // K9_CHUNK * K9_CHUNK
+        if held >= K9_CHUNK:
+            return c, held
+    return c, 0
+
+
+def _check_tiled(q, k, k_scale, v, v_scale, pos, span):
+    """The tiled form's operands: (B, KVH, S, hd, G, span)."""
     b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
     h = q.shape[1]
     _check_device(k, q)
@@ -377,29 +454,65 @@ def decode_attention_tiled(q, k, k_scale, v, v_scale, pos, *,
     span = s if span is None else min(span, s)
     if span % TILE:
         raise ValueError(f"span {span} must be a multiple of {TILE}")
+    return b, kvh, s, hd, h // kvh, span
+
+
+def _tiled_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *,
+                precision, span, window, softcap):
+    """Launch K9; with k_new/v_new given the cluster first quantizes its
+    head's new row and writes it to the cache, reading its own copy for
+    row pos."""
+    b, kvh, s, hd, g, span = _check_tiled(q, k, k_scale, v, v_scale, pos,
+                                          span)
+    if k_new is not None:
+        _check_device(k, k_new, v_new)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention_tiled: hd must be in {HEAD_DIMS}, "
+                         f"got {hd}")
+    clusters, held = k9_plan(b, kvh, g, span, hd,
+                             sm_count(q.device.index or 0))
+    if not held:
+        raise ValueError(f"decode_attention_tiled: {g} query rows of {hd} "
+                         f"and {K9_CHUNK} cache rows exceed {K4_SMEM} bytes "
+                         "of shared memory")
+    qf = q.float().contiguous()
+    p = pos.to(torch.int32).contiguous()
+    insert = k_new is not None
+    if insert:
+        kn, vn = k_new.float().contiguous(), v_new.float().contiguous()
+    else:
+        kn = vn = qf     # unused by the kernel
+    out = torch.empty((b, kvh * g, 1, hd), dtype=torch.float32,
+                      device=q.device)
+    err = _lib_tiled().decode_attention_tiled_launch(
+        build.ptr(qf), build.ptr(kn), build.ptr(vn), build.ptr(k),
+        build.ptr(k_scale), build.ptr(v), build.ptr(v_scale), build.ptr(p),
+        build.ptr(out), b, kvh, g, s, span, hd, 1.0 / hd ** 0.5,
+        float(softcap), int(window),
+        int(precision == "fast") | (2 if insert else 0), clusters,
+        -(-span // clusters), held, build.stream_ptr())
+    build.check(err, "decode_attention_tiled")
+    decode_attention_tiled.launches += 1
+    return out
+
+
+def decode_attention_tiled(q, k, k_scale, v, v_scale, pos, *,
+                           precision: str = "fast", span: int | None = None,
+                           window: int = 0, softcap: float = 0.0):
+    """Single-token GQA attention over the first `span` cache rows in
+    256-row tiles (span a multiple of 256): the contract of
+    `decode_attention` at t = 1, for spans past the single-tile envelope.
+    q (B, H, 1, hd) with rope applied; returns (B, H, 1, hd) float32. On
+    the card one call is one K9 launch."""
+    span = _check_tiled(q, k, k_scale, v, v_scale, pos, span)[-1]
     kw = dict(precision=precision, span=span, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return decode_attention_tiled_plain(q, k, k_scale, v, v_scale, pos,
                                             **kw)
-    g = h // kvh
-    if q.device.type != "cuda" or hd not in HEAD_DIMS \
-            or g * hd * 4 > 48 * 1024:
-        raise ValueError(f"decode_attention_tiled: cuda, hd in {HEAD_DIMS} "
-                         f"and g*hd*4 <= 48 KiB, got {q.device} hd={hd} g={g}")
-    qf = q.float().contiguous()
-    p = pos.to(torch.int32).contiguous()
-    # scores, tile maxes, (m, l) and acc partials (csrc/attention.cu)
-    ws = torch.empty(b * kvh * g * (span + span // TILE * (3 + hd)),
-                     dtype=torch.float32, device=q.device)
-    out = torch.empty((b, h, 1, hd), dtype=torch.float32, device=q.device)
-    err = _lib().decode_attention_tiled_launch(
-        build.ptr(qf), build.ptr(k), build.ptr(k_scale), build.ptr(v),
-        build.ptr(v_scale), build.ptr(p), build.ptr(ws), build.ptr(out), b,
-        kvh, g, s, span, hd, 1.0 / hd ** 0.5, float(softcap), int(window),
-        int(precision == "fast"), build.stream_ptr())
-    build.check(err, "decode_attention_tiled")
-    decode_attention_tiled.launches += 1
-    return out
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_tiled runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _tiled_cuda(q, None, None, k, k_scale, v, v_scale, pos, **kw)
 
 
 decode_attention_tiled.launches = 0

@@ -259,3 +259,32 @@ def test_one_launch_with_the_plan(monkeypatch, model, t, insert):
     assert args[9:16] == (b, kvh, g, t, s, span, hd)
     assert args[18:] == (0, 1 | (2 if insert else 0),
                          *k4_plan(b, kvh, g, t, span, hd, 132), None)
+
+
+def test_guard_takes_the_launchers_query_tile(monkeypatch):
+    """16 query heads per KV head at t = 8 and hd 128 (128 query rows, a
+    64 KiB query tile) fit the shared memory K4's launcher opts into: the
+    guard takes them and the launch carries `k4_plan`'s 96-key tile; 64
+    query heads per KV head (512 rows) do not fit even a 32-key tile and
+    are refused before any launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(ATT, "_lib", lambda: lib)
+    monkeypatch.setattr(ATT, "sm_count", lambda index: 132)
+    monkeypatch.setattr(build, "stream_ptr", lambda: None)
+    b, kvh, hd, s, span, t = 16, 8, 128, 1024, 512, 8
+    assert k4_smem_bytes(16 * t, hd, 32) == 186640 <= K4_SMEM
+    assert k4_plan(b, kvh, 16, t, span, hd, 132)[1] == 96
+    k = torch.zeros((b, kvh, s, hd), dtype=torch.int8)
+    sc = torch.zeros((b, kvh, s))
+    pos = torch.zeros(b, dtype=torch.int32)
+    kw = dict(t=t, precision="fast", span=span, window=0, softcap=0.0)
+    out = _attend_cuda(torch.zeros((b, 16 * kvh, t, hd)), None, None, k, sc,
+                       k.clone(), sc.clone(), pos, **kw)
+    assert out.shape == (b, 16 * kvh, t, hd)
+    assert lib.calls[0][1][-3:] == (*k4_plan(b, kvh, 16, t, span, hd, 132),
+                                    None)
+    assert k4_smem_bytes(64 * t, hd, 32) > K4_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        _attend_cuda(torch.zeros((b, 64 * kvh, t, hd)), None, None, k, sc,
+                     k.clone(), sc.clone(), pos, **kw)
+    assert len(lib.calls) == 1

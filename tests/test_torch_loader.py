@@ -23,7 +23,8 @@ from gguf_tpu_torch.models import (LlamaConfig, MMOpts, forward,
                                    fuse_llama_params, init_kv_cache,
                                    load_llama, write_random_llama_gguf)
 from gguf_tpu_torch.models import loader as loader_mod
-from gguf_tpu_torch.models.loader import check_forward_computes
+from gguf_tpu_torch.models.loader import (check_device_computes,
+                                           check_forward_computes)
 
 CFG = LlamaConfig(vocab_size=64, dim=256, n_layers=1, n_heads=4,
                   n_kv_heads=2, ffn_dim=256, max_seq_len=64)
@@ -132,5 +133,68 @@ def test_default_file_loads_and_matches_jax(tmp_path, extra):
                      torch.zeros(1, dtype=torch.int32),
                      init_kv_cache(cfg, 1, 64, "cpu"), MMOpts(), span=64)
     ref = np.asarray(ref)
+    assert got.shape == ref.shape and np.isfinite(got.numpy()).all()
+    assert np.max(np.abs(got.numpy() - ref)) <= TOL * np.max(np.abs(ref))
+
+
+# head dims the card's attention kernels (K3, K4, K9: 64 and 128) do not
+# take: Llama-shaped dim 3200 over 32 heads, and an explicit key_length
+DEVICE_REFUSED = {
+    "hd100": LlamaConfig(vocab_size=64, dim=3200, n_layers=2, n_heads=32,
+                         n_kv_heads=4, ffn_dim=256, max_seq_len=64),
+    "key_length256": dataclasses.replace(CFG, head_dim_override=256),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_REFUSED))
+def test_device_check_refuses_a_head_dim_the_card_lacks(name):
+    cfg = DEVICE_REFUSED[name]
+    with pytest.raises(NotImplementedError,
+                       match=rf"^head_dim = {cfg.head_dim}: "):
+        check_device_computes(cfg, "cuda")
+    check_device_computes(cfg, "cpu")     # the plain path computes any
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_REFUSED))
+def test_load_refuses_on_cuda_before_any_weight(tmp_path, monkeypatch, name):
+    """`load_llama` for the card raises before it reads any weight (the
+    loaders fail if called); for the CPU the same file loads."""
+    cfg = DEVICE_REFUSED[name]
+    path = str(tmp_path / "m.gguf")
+    write_random_llama_gguf(path, cfg, fmt=GGMLType.Q8_0, seed=1)
+    real = (loader_mod._load_weight, loader_mod._load_f32)
+
+    def no_weight(*args):
+        raise AssertionError("a weight was loaded")
+
+    monkeypatch.setattr(loader_mod, "_load_weight", no_weight)
+    monkeypatch.setattr(loader_mod, "_load_f32", no_weight)
+    with pytest.raises(NotImplementedError,
+                       match=rf"^head_dim = {cfg.head_dim}: "):
+        load_llama(path, "cuda")
+    monkeypatch.setattr(loader_mod, "_load_weight", real[0])
+    monkeypatch.setattr(loader_mod, "_load_f32", real[1])
+    got, _ = load_llama(path, "cpu")
+    assert got.head_dim == cfg.head_dim
+
+
+def test_hd100_file_matches_jax_on_the_cpu(tmp_path):
+    """The hd-100 file the card refuses still runs on the CPU: 2 layers,
+    an 8-token prefill, logits within TOL of the JAX forward's."""
+    cfg = DEVICE_REFUSED["hd100"]
+    path = str(tmp_path / "m.gguf")
+    write_random_llama_gguf(path, cfg, fmt=GGMLType.Q8_0, seed=5)
+    pcfg, params = load_llama(path, "cpu")
+    jcfg, jparams = jax_load_llama(path)
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 8))
+    ref, _ = jax.jit(jax_forward, static_argnames=("cfg", "opts", "span"))(
+        jax_fuse(jparams), jcfg, jnp.asarray(tokens, jnp.int32),
+        jnp.zeros(1, jnp.int32), jax_init_cache(jcfg, 1, 64),
+        opts=JaxMMOpts(), span=64)
+    got, _ = forward(fuse_llama_params(params), pcfg,
+                     torch.from_numpy(tokens), torch.zeros(1, dtype=torch.int32),
+                     init_kv_cache(pcfg, 1, 64, "cpu"), MMOpts(), span=64)
+    ref = np.asarray(ref)
+    assert pcfg.head_dim == 100
     assert got.shape == ref.shape and np.isfinite(got.numpy()).all()
     assert np.max(np.abs(got.numpy() - ref)) <= TOL * np.max(np.abs(ref))

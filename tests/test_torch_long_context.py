@@ -7,6 +7,9 @@ The reference routes on `PALLAS_ATTN_MAX_ELEMS` (2^21 cache elements per
 batch element): within it, t <= 8 goes to the insert + single-tile kernel;
 past it, t = 1 goes to the insert + tiled flash-decoding kernel and every
 other t to the insert (or the plain cache update) + the f32 einsum arm.
+The port's model makes both t = 1 routes one `decode_attention_update`
+call (one launch on the card); on the CPU that call inserts, then
+attends through the route's own function.
 """
 
 import numpy as np
@@ -24,20 +27,24 @@ from gguf_tpu_torch.models import (LlamaConfig, MMOpts, forward,
                                    fuse_llama_params, load_llama,
                                    write_random_llama_gguf)
 from gguf_tpu_torch.models import llama as port_llama
+from gguf_tpu_torch.ops import attention as port_attention
 
 CFG = LlamaConfig(vocab_size=256, dim=1024, n_layers=1, n_heads=8,
                   n_kv_heads=8, ffn_dim=512, max_seq_len=4096)
 B, S = 2, 4096
 TOL = 1e-2          # tests/test_torch_model.py: logits vs max|ref|
 # (t, positions, span) -> the port's attention functions the step calls
+# (those `attention` calls, then, prefixed "ops.", those the update calls)
 STEPS = {
     "t1_span4096": (1, (3000, 2990), 4096,
-                    ["kv_cache_insert", "decode_attention_tiled"]),
+                    ["decode_attention_update", "ops.kv_cache_insert",
+                     "ops.decode_attention_tiled"]),
     "t8_span4096": (8, (3000, 2990), 4096, ["kv_cache_insert"]),
-    "t1_span512": (1, (300, 290), 512, ["decode_attention_update"]),
+    "t1_span512": (1, (300, 290), 512,
+                   ["decode_attention_update", "ops.kv_cache_insert"]),
 }
-ROUTED = ("decode_attention_update", "decode_attention_tiled",
-          "kv_cache_insert", "_cache_update")
+ROUTED = ("decode_attention_update", "kv_cache_insert", "_cache_update")
+OPS_ROUTED = ("kv_cache_insert", "decode_attention_tiled")
 
 
 @pytest.fixture(scope="module")
@@ -63,16 +70,19 @@ def _seeded_cache(seed):
 
 @pytest.fixture
 def routes(monkeypatch):
-    """The port's attention functions that `attention` calls, in order."""
+    """The port's attention functions that `attention` calls, and those
+    that `decode_attention_update` calls, in order."""
     calls = []
-    for name in ROUTED:
-        real = getattr(port_llama, name)
+    for module, names, tag in ((port_llama, ROUTED, ""),
+                               (port_attention, OPS_ROUTED, "ops.")):
+        for name in names:
+            real = getattr(module, name)
 
-        def spy(*args, _real=real, _name=name, **kwargs):
-            calls.append(_name)
-            return _real(*args, **kwargs)
+            def spy(*args, _real=real, _name=tag + name, **kwargs):
+                calls.append(_name)
+                return _real(*args, **kwargs)
 
-        monkeypatch.setattr(port_llama, name, spy)
+            monkeypatch.setattr(module, name, spy)
     return calls
 
 
