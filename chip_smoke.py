@@ -12,7 +12,22 @@ and Q4_0 (every matrix in the format, head and embedding included), and
 in llama.cpp's Q2_K mix (`q2k_mix_type`); 2-layer TinyLlama-width Q4_1,
 Q5_0, Q5_1, Q2_K, Q3_K, IQ4_NL and IQ4_XS (every matrix in the format);
 and Llama-2-7B as Q4_K_M. It then runs the main paths below, each with
-every kernel's launch counter reset just before it and read just after:
+every kernel's launch counter reset just before it and read just after.
+
+Every serving run below is two `generate` calls over the same prompts:
+the first captures each decode chunk's bucket (steps, span, sampler) as
+a CUDA graph, the second only replays them, is timed, and must give the
+same ids; the launch counters move in eager runs and captures, never in
+replays. Each served configuration also gets a graph phase (`graph_phase`:
+TinyLlama Q4_K_M, Q5_K_M under act_quant and bf16, Q8_0, Q4_0, the Q2_K
+mix, Llama-2-7B at spans 512 and 4096): 8 greedy steps from one saved
+cache through the eager loop (`_decode_eager`) and through the graph
+replay (`_decode`, twice: capture, then replay alone), ids equal step for
+step and the cache bit-equal; then the decode step split through both
+(wall, host issue, device busy, idle share, kernels per step), the eager
+side's wrapper launches per step required, the graph side's kernels per
+step by name (`torch.profiler` sees the kernels a replay runs) equal to
+the eager side's.
 
 Q4_K_M with bf16 activations (kernels K1-K4):
 1. holds K1-K4 against their plain PyTorch versions on the card, at the
@@ -28,7 +43,10 @@ Q4_K_M with bf16 activations (kernels K1-K4):
    K2 (tensor cores under "fast") at the same widths on the head and its
    first 1000 rows, and on K6's f32 output;
 2. serves 24 token-id prompts (5..300 tokens, 32 new tokens each, greedy)
-   through `LLM(max_batch=16, max_seq=2048).generate`;
+   through `LLM(max_batch=16, max_seq=2048).generate`, then its graph
+   phase at span 256 (88 K1 and 22 K4 launches per eager step required)
+   and a seeded sampling check through the graphs (temperature 0.8,
+   top-k 40: one seed twice gives equal ids, another seed other ids);
 3. checks every logit of that run finite, and the card's logits for a
    16-token prompt against the CPU run of the same port (plain versions):
    within 1e-2 * max|ref| through 2 layers, 5e-2 through all 22.
@@ -42,7 +60,8 @@ precision="high")` (kernels K2-K8):
    widths of 1., on every projection and on wqkv's first 256 and 1000
    rows) and 1e-5 under "high" (n = 1, 16, 512), on bf16 activations and
    on K6's f32 output, and K2 on K6's output under "high" within 1e-5;
-5. serves the same 24 prompts and requires launches of K2-K8 on that run;
+5. serves the same 24 prompts and requires launches of K2-K8 on that run,
+   then its graph phase (88 K7 and 22 K4 launches per eager step);
 6. checks its logits as in 3: through 2 layers within 1e-2 with bf16
    activations and within 3e-2 under act_quant (where one code moved by
    a last-ulp difference upstream shifts the output by a whole quantum),
@@ -629,7 +648,11 @@ def checkpoint_path(seed: int, tag: str) -> str:
 
 
 def write_checkpoint(seed: int, tag: str) -> None:
-    """Write one random checkpoint (the child process's whole work)."""
+    """Write one random checkpoint (the child process's whole work). The
+    IQ4 files, read last, are written at a lower CPU priority: the 7B
+    writer beside them decides when the 7B phases can start."""
+    if tag.startswith("iq4"):
+        os.nice(10)
     cfg, writer, _ = CHECKPOINTS[tag]
     path = checkpoint_path(seed, tag)
     tmp = path + f".{os.getpid()}.tmp"
@@ -1476,9 +1499,15 @@ def other_mmq(required: tuple) -> tuple:
 def serve(llm: LLM, seed: int, required: tuple,
           prompt_lens: tuple = PROMPT_LENS, forbidden: tuple = ()) -> dict:
     """A main path: continuous batching over seeded prompts of
-    `prompt_lens` tokens, every logit checked finite on the device (no host
-    sync per step), every kernel in `required` launched and none in
-    `forbidden`."""
+    `prompt_lens` tokens, twice: a warm-up run that captures every decode
+    bucket the run takes as a CUDA graph, then the timed run, which only
+    replays them (its stats report no capture time) and must give the
+    same ids. Every logit is checked finite on the device with no host
+    sync per step: the prefill forwards' through a flag each one ANDs
+    into, the decode chunks' through the flag each graph writes
+    (`decode_finite`). Every kernel in `required` launched over both
+    runs and none in `forbidden` (the counters move in eager runs and in
+    captures, not in replays)."""
     rng = np.random.default_rng(seed)
     prompts = [[int(v) for v in rng.integers(0, llm.cfg.vocab_size, n)]
                for n in prompt_lens]
@@ -1495,18 +1524,28 @@ def serve(llm: LLM, seed: int, required: tuple,
     for fn in WRAPPERS.values():
         fn.launches = 0
     engine_mod.forward = checked_forward
+    runs = []
     try:
-        res = llm.generate(prompts, max_new_tokens=NEW_TOKENS,
-                           sampler=SamplerConfig(), seed=seed)
-        torch.cuda.synchronize()
+        for _ in range(2):
+            runs.append(llm.generate(prompts, max_new_tokens=NEW_TOKENS,
+                                     sampler=SamplerConfig(), seed=seed))
+            torch.cuda.synchronize()
     finally:
         engine_mod.forward = plain_forward
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
-    if len(res) != len(prompts) or any(
-            len(r.token_ids) != NEW_TOKENS or not r.finished for r in res):
+    warm, res = runs
+    if any(len(r) != len(prompts) or any(
+            len(x.token_ids) != NEW_TOKENS or not x.finished for x in r)
+            for r in runs):
         raise AssertionError("generate did not answer every request in full")
-    if not bool(finite):
+    if not bool(finite) or not all(r[0].stats["decode_finite"]
+                                   for r in runs):
         raise AssertionError("non-finite logits in the serving run")
+    if [r.token_ids for r in warm] != [r.token_ids for r in res]:
+        raise AssertionError("the replaying run gave other ids than the "
+                             "capturing one")
+    if res[0].stats["capture_s"]:
+        raise AssertionError("the timed run captured a graph")
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -1515,15 +1554,37 @@ def serve(llm: LLM, seed: int, required: tuple,
         raise AssertionError(f"kernels launched off this path's route: {stray}")
     st = res[0].stats
     chunks = sum(-(-n // engine_mod.PREFILL_CHUNK) for n in prompt_lens)
-    log(f"served {len(res)} requests x {NEW_TOKENS} tokens, {n_fwd[0]} "
-        f"forwards, all logits finite: wall {st['wall_s']:.2f} s, prefill "
-        f"{st['prefill_s']:.2f} s for {sum(prompt_lens)} prompt tokens in "
-        f"{chunks} chunks, decode {st['decode_s']:.2f} s for "
-        f"{st['decode_tokens']} tokens = "
+    log(f"warm-up run: {warm[0].stats['wall_s']:.2f} s, of which "
+        f"{warm[0].stats['capture_s']:.2f} s captured decode graphs; "
+        f"{len(llm.graphs.keys())} graphs held, pool "
+        f"{llm.graphs.pool_bytes()} bytes")
+    log(f"served {len(res)} requests x {NEW_TOKENS} tokens (the timed run), "
+        f"{n_fwd[0]} prefill forwards in both runs, all logits finite: wall "
+        f"{st['wall_s']:.2f} s, prefill {st['prefill_s']:.2f} s for "
+        f"{sum(prompt_lens)} prompt tokens in {chunks} chunks, decode "
+        f"{st['decode_s']:.2f} s for {st['decode_tokens']} tokens = "
         f"{st['decode_tokens'] / st['decode_s']:.1f} decode tok/s at batch "
         f"<= {MAX_BATCH}; end to end {st['tokens_per_s']:.1f} tok/s")
     log(f"launches on the main path: {json.dumps(launches)}")
     return launches
+
+
+def stochastic_check(llm: LLM, seed: int) -> None:
+    """Temperature 0.8, top-k 40 through the graphs (each registers the
+    engine's generator): two generate calls with one seed give equal ids,
+    a third with another seed other ids."""
+    rng = np.random.default_rng(seed + 5)
+    prompts = [[int(v) for v in rng.integers(0, llm.cfg.vocab_size, n)]
+               for n in (5, 40, 100, 200)]
+    sampler = SamplerConfig(temperature=0.8, top_k=40)
+    ids = [[r.token_ids for r in llm.generate(prompts, 16, sampler, seed=s)]
+           for s in (seed, seed, seed + 1)]
+    log(f"sampling (temperature 0.8, top-k 40), {len(prompts)} requests x "
+        f"16 tokens: seed {seed} twice {'equal' if ids[0] == ids[1] else 'DIFFER'}"
+        f", seed {seed + 1} {'differs' if ids[2] != ids[0] else 'EQUAL'}")
+    if ids[0] != ids[1] or ids[0] == ids[2]:
+        raise AssertionError("seeded sampling through the graphs does not "
+                             "follow its seed")
 
 
 def _first_layers(params: dict, n_layers: int) -> dict:
@@ -1699,10 +1760,11 @@ def profile_decode(path: str, seed: int, rounds: int = 3) -> None:
     for rnd in range(rounds):
         for label, opts in configs:
             llm.opts = opts
-            llm._decode(tok, pos, sampler, 2, 256, gen)
+            decode = eager_decode(llm)
+            decode(tok, pos, sampler, 2, 256, gen)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            llm._decode(tok, pos, sampler, 8, 256, gen)
+            decode(tok, pos, sampler, 8, 256, gen)
             issue = time.perf_counter() - t0
             torch.cuda.synchronize()
             done = time.perf_counter() - t0
@@ -1713,7 +1775,7 @@ def profile_decode(path: str, seed: int, rounds: int = 3) -> None:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
-                llm._decode(tok, pos, sampler, 4, 256, gen)
+                decode(tok, pos, sampler, 4, 256, gen)
                 torch.cuda.synchronize()
             kern = sorted((e for e in prof.key_averages()
                            if e.device_type.name == "CUDA"),
@@ -1738,42 +1800,153 @@ def hbm_read_gbs() -> float:
     return 4 * 2 ** 30 / ms / 1e6
 
 
+def eager_decode(llm: LLM):
+    """The eager decode loop: `_decode_eager` (`_decode` in trees before
+    the decode chunk became a CUDA graph, so `--mix-step` still runs in
+    an earlier tree)."""
+    return getattr(llm, "_decode_eager", llm._decode)
+
+
 def decode_split(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
-                 label: str, gen: torch.Generator) -> tuple:
-    """One 16-slot decode step's split at `pos` and `span`: the host clock
-    over 8 steps ending in a sync (and the kernel wrappers' launches per
-    step), then `torch.profiler` over 4 steps (device busy time, idle
-    share, the top kernels). Returns the profiler's CUDA events and the
-    wrappers' launches per step."""
+                 label: str, gen: torch.Generator,
+                 graph: bool = False) -> dict:
+    """One 16-slot decode step's split at `pos` and `span`, through the
+    eager loop or (`graph`) the CUDA graph replays of `_decode`: the host
+    clock over 8 steps ending in a sync (host issue: until the 8 steps
+    are issued; eager also the kernel wrappers' launches per step, which
+    a replay does not count), then `torch.profiler` over 4 steps (device
+    busy time, idle share, the top kernels, and the launches per step of
+    each of KERNEL_GROUPS). The graph side captures its 2-, 4- and 8-step
+    buckets before the clock starts. Returns the profiler's CUDA events,
+    the wrappers' launches per step (None for the graph) and the
+    numbers."""
     sampler = SamplerConfig()
-    llm._decode(tok, pos, sampler, 2, span, gen)
+    side = "graph" if graph else "eager"
+    if graph:
+        def run(steps):
+            return llm.graphs.launch(llm, tok, pos, sampler, steps, span,
+                                     llm.generator)
+
+        for steps in (2, 4, 8):
+            run(steps).read()
+    else:
+        def run(steps):
+            return eager_decode(llm)(tok, pos, sampler, steps, span, gen)
+
+        run(2)
     torch.cuda.synchronize()
     for fn in WRAPPERS.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    llm._decode(tok, pos, sampler, 8, span, gen)
+    out = run(8)
     issue = time.perf_counter() - t0
+    if graph:
+        out.read()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 8 * 1e3
-    per_step = {k: f.launches / 8 for k, f in WRAPPERS.items() if f.launches}
-    log(f"{label}: wrapper launches per step " + json.dumps(per_step))
+    per_step = None if graph else {k: f.launches / 8
+                                   for k, f in WRAPPERS.items() if f.launches}
+    if per_step is not None:
+        log(f"{label}: wrapper launches per step " + json.dumps(per_step))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        llm._decode(tok, pos, sampler, 4, span, gen)
+        out = run(4)
+        if graph:
+            out.read()
         torch.cuda.synchronize()
     kern = sorted((e for e in prof.key_averages()
                    if e.device_type.name == "CUDA"),
                   key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kern) / 4 / 1e3
-    log(f"{label}: wall {wall:.2f} ms/step, host issue "
+    count = sum(e.count for e in kern) / 4
+    log(f"{label} ({side}): wall {wall:.2f} ms/step, host issue "
         f"{issue / 8 * 1e3:.2f} ms/step, device busy {busy:.2f} ms/step "
-        f"({100 * (1 - busy / wall):.0f}% idle) over "
-        f"{sum(e.count for e in kern) / 4:.0f} kernels/step; top 8:")
+        f"({100 * (1 - busy / wall):.0f}% idle) over {count:.0f} "
+        "kernels/step; top 8:")
     for e in kern[:8]:
         log(f"  {e.self_device_time_total / 4 / 1e3:8.3f} ms/step "
             f"{e.count / 4:6.1f}/step {e.key[:70]}")
-    log_groups(kern, 4, "/step")
-    return kern, per_step
+    groups = log_groups(kern, 4, "/step")
+    return {"kern": kern, "per_step": per_step, "wall_ms": wall,
+            "issue_ms": issue / 8 * 1e3, "busy_ms": busy, "kernels": count,
+            "groups": groups}
+
+
+def _snapshot(cache: list) -> list:
+    return [{n: c.clone() for n, c in layer.items()} for layer in cache]
+
+
+def _restore(cache: list, saved: list) -> None:
+    for layer, old in zip(cache, saved):
+        for n, c in layer.items():
+            c.copy_(old[n])
+
+
+def _cache_equal(cache: list, ref: list) -> bool:
+    return all(torch.equal(c, r[n]) for layer, r in zip(cache, ref)
+               for n, c in layer.items())
+
+
+def graph_equality(llm: LLM, tok: torch.Tensor, pos: torch.Tensor,
+                   span: int, label: str, steps: int = 8) -> None:
+    """`steps` greedy steps from one saved cache through the eager loop,
+    then, from the cache restored, through `_decode` twice (the first call
+    captures the bucket if it is new, the second only replays): the ids
+    equal step for step and the cache bit-equal to the eager loop's each
+    time."""
+    sampler = SamplerConfig()
+    saved = _snapshot(llm.cache)
+    ids = eager_decode(llm)(tok, pos, sampler, steps, span,
+                            llm.generator).cpu().numpy()
+    eager_cache = _snapshot(llm.cache)
+    for call in ("first", "second"):
+        _restore(llm.cache, saved)
+        got = llm._decode(tok, pos, sampler, steps, span, llm.generator)
+        same_ids = np.array_equal(got.ids, ids)
+        same_cache = _cache_equal(llm.cache, eager_cache)
+        log(f"{label}: {steps} greedy steps, graph ({call} call) vs eager "
+            f"from one cache: ids {'equal' if same_ids else 'DIFFER'} step "
+            f"for step, cache {'bit-equal' if same_cache else 'DIFFERS'}, "
+            f"logits finite {got.finite}")
+        if not (same_ids and same_cache and got.finite):
+            raise AssertionError(f"{label}: the graph replay disagrees with "
+                                 "the eager loop")
+    del saved, eager_cache
+    torch.cuda.empty_cache()
+
+
+def graph_phase(llm: LLM, tok: torch.Tensor, pos: torch.Tensor, span: int,
+                label: str, gen: torch.Generator, want: dict) -> dict:
+    """A served configuration's decode chunk, graph against eager:
+    `graph_equality`, then `decode_split` through both, side by side. The
+    eager side's wrapper launches per step must equal `want`
+    (`require_step`), and the graph side must launch per step as many
+    kernels of each of KERNEL_GROUPS as the eager side, as the profiler
+    counts them. Returns the eager split."""
+    graph_equality(llm, tok, pos, span, label)
+    for attempt in range(3):
+        eager = decode_split(llm, tok, pos, span, label, gen)
+        require_step(eager["per_step"], want)
+        replay = decode_split(llm, tok, pos, span, label, gen, graph=True)
+        if replay["groups"] == eager["groups"]:
+            break
+        # the profiler has dropped a kernel's events in a window before
+        # (`device_ms`): measure both sides again before failing
+        log(f"{label}: kernels per step by group differ, graph "
+            f"{replay['groups']} vs eager {eager['groups']}; again")
+    log(f"{label}, eager -> graph per step: wall {eager['wall_ms']:.2f} -> "
+        f"{replay['wall_ms']:.2f} ms, host issue {eager['issue_ms']:.2f} -> "
+        f"{replay['issue_ms']:.2f} ms, device busy {eager['busy_ms']:.2f} -> "
+        f"{replay['busy_ms']:.2f} ms, kernels {eager['kernels']:.0f} -> "
+        f"{replay['kernels']:.0f}")
+    if replay["groups"] != eager["groups"]:
+        raise AssertionError(f"{label}: the graph launches other kernels "
+                             f"per step ({replay['groups']}) than the eager "
+                             f"loop ({eager['groups']})")
+    log(f"{label}: kernels per step by group equal on both sides "
+        + json.dumps(eager["groups"]) + "; per replayed 8-step chunk "
+        + json.dumps({k: 8 * v for k, v in replay["groups"].items()}))
+    return eager
 
 
 def require_step(per_step: dict, want: dict) -> None:
@@ -1788,23 +1961,26 @@ def require_step(per_step: dict, want: dict) -> None:
 # kernel-name pieces by which device time is summed per source
 KERNEL_GROUPS = ("mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q5_k", "mmq_q6_k",
                  "mmq_iq4", "mmq_q8_0", "mmq_q4_0", "mmq_q4_1", "mmq_q5_0",
-                 "mmq_q5_1", "add_splits", "to_bf16", "attn_kernel", "tiled_")
+                 "mmq_q5_1", "mmq_i8", "quantize_q8_1", "add_splits",
+                 "to_bf16", "kv_insert", "attn_kernel", "tiled_")
 
 
-def log_groups(kern: list, runs: int, unit: str) -> None:
+def log_groups(kern: list, runs: int, unit: str) -> dict:
     """Device time and launches of the profiler's CUDA events `kern` per
     run, summed over the kernels whose name holds each of KERNEL_GROUPS
     (a kernel's template instances and tiles together; add_splits is the
-    split-K sum of every split-K kernel alike)."""
-    parts = []
+    split-K sum of every split-K kernel alike; quantize_q8_1 is K5 and K6
+    together). Returns the launches per run by group."""
+    parts, counts = [], {}
     for name in KERNEL_GROUPS:
         hit = [e for e in kern if name in e.key]
         if hit:
             ms = sum(e.self_device_time_total for e in hit) / runs / 1e3
-            count = sum(e.count for e in hit) / runs
-            parts.append(f"{name} {ms:.3f} ms ({count:.0f})")
+            counts[name] = sum(e.count for e in hit) / runs
+            parts.append(f"{name} {ms:.3f} ms ({counts[name]:.0f})")
     if parts:
         log(f"  by kernel{unit}: " + ", ".join(parts))
+    return counts
 
 
 def prefill_chunk(llm: LLM, toks: np.ndarray, start: int, label: str) -> None:
@@ -1842,8 +2018,9 @@ def prefill_chunk(llm: LLM, toks: np.ndarray, start: int, label: str) -> None:
 
 def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
     """Where the 7B decode step goes: 16 live slots at round A's and at
-    round B's positions (spans 512 and 4096), split by `decode_split`;
-    K9's device time per layer beside its bound (the live K/V rows and
+    round B's positions (spans 512 and 4096), the graph replay against
+    the eager loop at each (`graph_phase`: ids and cache equal, then both
+    split by `decode_split`); K9's device time per layer beside its bound (the live K/V rows and
     their scales over the HBM read measured in this run and over the
     published 3.35 TB/s). Then one 512-token prefill chunk at the start
     of a slot and one at span 4096."""
@@ -1856,14 +2033,13 @@ def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:
     for lens, span in ((ROUND_A, 512), (ROUND_B, SEQ7B)):
         pos = torch.tensor([lens[i % len(lens)] for i in range(MAX_BATCH)],
                            dtype=torch.int32, device=DEVICE)
-        kern, per_step = decode_split(llm, tok, pos, span,
-                                      f"7B decode step, 16 slots, span {span}",
-                                      gen)
-        if span == 512:     # within the single-tile envelope: K4 per layer
-            require_step(per_step, {"decode_attention": layers})
-        else:               # past it: K9 per layer, the insert fused in
-            require_step(per_step, {"decode_attention_tiled": layers,
-                                    "kv_cache_insert": 0})
+        # within the single-tile envelope K4 per layer; past it K9 per
+        # layer, the insert fused in
+        want = ({"decode_attention": layers} if span == 512 else
+                {"decode_attention_tiled": layers, "kv_cache_insert": 0})
+        kern = graph_phase(llm, tok, pos, span,
+                           f"7B decode step, 16 slots, span {span}", gen,
+                           want)["kern"]
         tiled = sum(e.self_device_time_total for e in kern
                     if "tiled_" in e.key) / 4 / layers / 1e3
         if span == SEQ7B:
@@ -2019,12 +2195,11 @@ def block32_paths(seed: int, writers: Writers, gen: torch.Generator,
     with phase("Q8_0 and Q4_0 decode step, Q4_0 prefill chunk"):
         tok, pos, gen_step = _step_inputs(seed)
         for fmt in ("q8_0", "q4_0"):
-            _, per_step = decode_split(
-                llms[fmt], tok, pos, 256,
-                f"TinyLlama {fmt} decode step, 16 slots, span 256", gen_step)
             kernel = "mmq_q8_0" if fmt == "q8_0" else "mmq_legacy"
-            require_step(per_step, {kernel: 4 * CFG.n_layers + 1,
-                                    "decode_attention": CFG.n_layers})
+            graph_phase(llms[fmt], tok, pos, 256,
+                        f"TinyLlama {fmt} decode step, 16 slots, span 256",
+                        gen_step, {kernel: 4 * CFG.n_layers + 1,
+                                   "decode_attention": CFG.n_layers})
         prefill_chunk(llms["q4_0"], _chunk_tokens(seed), 0, "TinyLlama Q4_0")
     with phase("reference checks of the five formats (2 layers)"):
         for fmt, llm in llms.items():
@@ -2058,7 +2233,7 @@ def rms_norm_shadow(llm: LLM, tok: torch.Tensor, pos: torch.Tensor,
     rms_norm.launches = 0
     llama_mod.rms_norm = shadow
     try:
-        llm._decode(tok, pos, SamplerConfig(), 1, span, gen)
+        eager_decode(llm)(tok, pos, SamplerConfig(), 1, span, gen)
         torch.cuda.synchronize()
     finally:
         llama_mod.rms_norm = model_norm
@@ -2070,6 +2245,13 @@ def rms_norm_shadow(llm: LLM, tok: torch.Tensor, pos: torch.Tensor,
         f"launches, worst rel {worst:.2e} (tol {TOL_NORM:g})")
     if worst > TOL_NORM or launches != len(seen):
         raise AssertionError("K15 disagrees with the model's RMSNorm")
+    # whether routing K15 would pay now that a replay costs no host time:
+    # the step's norms on the same inputs, device time of each form
+    times = [device_ms(lambda f=f: [f(x, w, eps) for x, w, eps, _ in seen])
+             for f in (model_norm, rms_norm)]
+    log("the step's norms by profiler device time: the model's torch norm "
+        + " ms, K15 ".join("not measured" if t is None else f"{t:.4f}"
+                           for t in times) + " ms per step")
     return launches
 
 
@@ -2109,15 +2291,17 @@ STEP_NAMES = {"q2k_mix": "TinyLlama Q2_K mix", "q5km": "TinyLlama Q5_K_M bf16",
 def mix_step(path: str, seed: int, name: str) -> None:
     """`--mix-step [TAG]`: a checkpoint's 16-slot decode step at span 256
     with bf16 activations (`MMOpts()`), split as the smoke run splits it
-    (twice), and its 512-token prefill chunk; nothing is checked. It
+    (twice; the eager loop, then where the tree has them the CUDA graph
+    replays), and its 512-token prefill chunk; nothing is checked. It
     imports nothing the port's earlier trees lack, so a copy of this script
     beside an earlier tree measures that tree in the same call (earlier
     tree, this one, this one, earlier tree)."""
     llm = LLM(path, max_batch=MAX_BATCH, max_seq=MAX_SEQ, device=DEVICE)
     tok, pos, gen = _step_inputs(seed)
     for r in range(2):
-        decode_split(llm, tok, pos, 256, f"{name} decode step, 16 slots, "
-                     f"span 256 (round {r})", gen)
+        for graph in (False, True) if hasattr(llm, "graphs") else (False,):
+            decode_split(llm, tok, pos, 256, f"{name} decode step, 16 slots, "
+                         f"span 256 (round {r})", gen, graph)
     prefill_chunk(llm, _chunk_tokens(seed), 0, name)
 
 
@@ -2167,10 +2351,9 @@ def kquant_low_paths(seed: int, writers: Writers, gen: torch.Generator,
     launches = {k: launches[k] for k in ("mmq_q2_k", "mmq_q3_k")}
     with phase("Q2_K mix decode step"):
         tok, pos, gen_step = _step_inputs(seed)
-        _, per_step = decode_split(
-            llms["mix"], tok, pos, 256,
-            "TinyLlama Q2_K mix decode step, 16 slots, span 256", gen_step)
-        require_step(per_step, {"decode_attention": CFG.n_layers})
+        graph_phase(llms["mix"], tok, pos, 256,
+                    "TinyLlama Q2_K mix decode step, 16 slots, span 256",
+                    gen_step, {"decode_attention": CFG.n_layers})
         launches["rms_norm"] = rms_norm_shadow(llms["mix"], tok, pos, 256,
                                                gen_step)
     with phase("Q2_K mix prefill chunk"):
@@ -2243,6 +2426,13 @@ def smoke(seed: int, writers: Writers) -> list:
         compare_attention_tiles(gen, rep)
     with phase("serve Q4_K_M"):
         launches = serve(llm4, seed, Q4KM_KERNELS)
+    with phase("Q4_K_M decode chunk, graph vs eager; seeded sampling"):
+        tok, pos, gen_step = _step_inputs(seed)
+        graph_phase(llm4, tok, pos, 256, "TinyLlama Q4_K_M decode step, 16 "
+                    "slots, span 256", gen_step,
+                    {"mmq_q4_k": 4 * CFG.n_layers,
+                     "decode_attention": CFG.n_layers})
+        stochastic_check(llm4, seed)
     with phase("reference check Q4_K_M"):
         reference_check(path4, llm4, seed,
                         ((2, MMOpts(), TOL_LOGITS),
@@ -2263,6 +2453,12 @@ def smoke(seed: int, writers: Writers) -> list:
         launches.update({k: v for k, v in serve(llm5, seed,
                                                 Q5KM_KERNELS).items()
                          if k in Q5KM_KERNELS})
+    with phase("Q5_K_M act_quant decode chunk, graph vs eager"):
+        tok, pos, gen_step = _step_inputs(seed)
+        graph_phase(llm5, tok, pos, 256, "TinyLlama Q5_K_M act_quant decode "
+                    "step, 16 slots, span 256", gen_step,
+                    {"mmq_i8": 4 * CFG.n_layers,
+                     "decode_attention": CFG.n_layers})
     with phase("reference check Q5_K_M under act_quant"):
         # the same weights with bf16 activations first: the act_quant
         # bound is wider than that path's by the quantization alone
@@ -2290,11 +2486,10 @@ def smoke(seed: int, writers: Writers) -> list:
             if k in Q5KM_BF16_KERNELS})
     with phase("Q5_K_M bf16 decode step and prefill chunk"):
         tok, pos, gen_step = _step_inputs(seed)
-        _, per_step = decode_split(llm5, tok, pos, 256, "TinyLlama Q5_K_M "
-                                   "bf16 decode step, 16 slots, span 256",
-                                   gen_step)
-        require_step(per_step, {"mmq_q5_k": 4 * CFG.n_layers,
-                                "decode_attention": CFG.n_layers})
+        graph_phase(llm5, tok, pos, 256, "TinyLlama Q5_K_M bf16 decode "
+                    "step, 16 slots, span 256", gen_step,
+                    {"mmq_q5_k": 4 * CFG.n_layers,
+                     "decode_attention": CFG.n_layers})
         prefill_chunk(llm5, _chunk_tokens(seed), 0, "TinyLlama Q5_K_M bf16")
     del llm5, cpu5
     torch.cuda.empty_cache()

@@ -6,8 +6,8 @@ context), ppl = exp(mean NLL).
 
 Counterpart of `gguf_tpu/eval/perplexity.py` (`sequence_nll`,
 `perplexity`, `perplexity_of_gguf`): the same windows, the same
-accounting, scored through the standard `forward` prefill path. The
-device is explicit. The JAX package pads the last batch of windows with
+accounting, scored through the standard `forward` prefill path, on the
+card unless the caller asks for the CPU. The JAX package pads the last batch of windows with
 empty rows to reuse one compiled program; eager PyTorch needs no padding,
 and the rows are independent, so the sums are the same.
 
@@ -79,9 +79,10 @@ def perplexity(params: dict, cfg: LlamaConfig, token_ids, **kw) -> float:
     return float(np.exp(total / max(count, 1)))
 
 
-def perplexity_of_gguf(path: str, token_ids, *, device,
+def perplexity_of_gguf(path: str, token_ids, *, device="cuda",
                        act_quant: bool = False, **kw) -> float:
-    """Load a GGUF checkpoint onto `device` and score a token stream."""
+    """Load a GGUF checkpoint onto `device` (the card unless the caller
+    asks for the CPU) and score a token stream."""
     cfg, params = load_llama(path, device)
     params = fuse_llama_params(params)
     kw.setdefault("opts", MMOpts(act_quant=act_quant))

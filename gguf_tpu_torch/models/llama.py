@@ -16,6 +16,7 @@ PyTorch runs eagerly and the port updates the KV cache IN PLACE:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -66,6 +67,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _freq_factors(factors: tuple, device: torch.device) -> torch.Tensor:
+    """A config's rope frequency divisors on `device`, copied there once:
+    the decode step then reads nothing from the host (a CUDA graph
+    captures it)."""
+    return torch.tensor(factors, dtype=torch.float32, device=device)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  scale: float = 1.0, *, kind: str = "linear",
                  freq_factors: tuple | None = None):
@@ -78,8 +87,7 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     freqs = theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
                                     device=dev) / head_dim)
     if freq_factors is not None:
-        freqs = freqs / torch.tensor(freq_factors, dtype=torch.float32,
-                                     device=dev)
+        freqs = freqs / _freq_factors(tuple(freq_factors), dev)
     angles = (positions.float() / scale)[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

@@ -96,12 +96,15 @@ def check_tensors_loaded(names, cfg: LlamaConfig) -> None:
             raise NotImplementedError(f"tensor {name}: {_NOT_PORTED}")
 
 
-def load_llama(path: str, device):
-    """Load a llama-architecture GGUF onto `device`: (cfg, params). A file
-    whose config or tensors the port's forward would ignore is refused with
+def load_llama(path: str, device="cuda"):
+    """Load a llama-architecture GGUF onto `device` (the card unless the
+    caller asks for the CPU): (cfg, params). A file whose config or
+    tensors the port's forward would ignore is refused with
     NotImplementedError before any weight is loaded, and so is one whose
     head dim the card's attention kernels do not take when `device` is
-    cuda."""
+    cuda. Asking for cuda where torch sees no CUDA device raises
+    RuntimeError after those checks, before any weight is loaded: nothing
+    runs on the CPU unasked."""
     device = torch.device(device)
     with GGUFReader(path) as reader:
         arch = reader.metadata.get("general.architecture", "llama")
@@ -113,6 +116,10 @@ def load_llama(path: str, device):
         check_forward_computes(cfg)
         check_device_computes(cfg, device.type)
         check_tensors_loaded(reader.tensors, cfg)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{path}: no CUDA device visible to torch; the port runs "
+                "on the card unless the caller passes device='cpu'")
         if "rope_freqs.weight" in reader.tensors:
             cfg = dataclasses.replace(cfg, rope_freq_factors=tuple(
                 float(x) for x in reader.load_array("rope_freqs.weight")))

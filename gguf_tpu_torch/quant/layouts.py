@@ -22,6 +22,7 @@ ops of `QuantTensor.dequantize()` in the same order, so bit-equal to it.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -177,7 +178,7 @@ def _dequant_q6_k(w: QuantWeight) -> torch.Tensor:
     ql = f["ql"].view(m, sb, 2, 2, 32).int()        # (half, slot, byte)
     qh = f["qh"].view(m, sb, 2, 1, 32).int()
     low4 = torch.cat([ql & 15, ql >> 4], dim=3).view(m, sb, QK_K)
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32,
+    shifts = torch.arange(0, 8, 2, dtype=torch.int32,
                           device=ql.device).view(1, 1, 1, 4, 1)
     hi2 = ((qh >> shifts) & 3).view(m, sb, QK_K)
     q = ((low4 | (hi2 << 4)) - 32).float().view(m, sb, 16, 16)
@@ -230,7 +231,7 @@ def _crumbs(qs: torch.Tensor, m: int, sb: int) -> torch.Tensor:
     """(M, SB*64) Q2_K/Q3_K qs bytes -> (M, SB, 256) int32 2-bit codes in
     element order: crumb j of byte 32h + l is element 128h + 32j + l."""
     qv = qs.view(m, sb, 2, 1, 32).int()
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32,
+    shifts = torch.arange(0, 8, 2, dtype=torch.int32,
                           device=qs.device).view(1, 1, 1, 4, 1)
     return ((qv >> shifts) & 3).view(m, sb, QK_K)
 
@@ -286,8 +287,15 @@ def _iq4_values(qs: torch.Tensor, m: int) -> torch.Tensor:
     byte j of each 16 holds element j (low nibble) and j + 16 (high)."""
     q = qs.view(m, -1, 16).long()
     codes = torch.cat([q & 15, q >> 4], dim=-1)
-    table = torch.from_numpy(KVALUES.astype(np.float32)).to(qs.device)
-    return table[codes]
+    return _iq4_table(qs.device)[codes]
+
+
+@functools.lru_cache(maxsize=None)
+def _iq4_table(device: torch.device) -> torch.Tensor:
+    """The IQ4 codebook as f32 on `device`, copied there once (a decode
+    step that dequantizes embedding rows then copies nothing from the
+    host, so a CUDA graph captures it)."""
+    return torch.from_numpy(KVALUES.astype(np.float32)).to(device)
 
 
 def _iq4_xs_scales(w: QuantWeight) -> torch.Tensor:

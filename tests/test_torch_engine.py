@@ -119,6 +119,26 @@ def test_generate_stats_and_admission(checkpoint):
         llm.generate(["hello"])
 
 
+def test_entry_points_default_to_the_card(checkpoint, monkeypatch):
+    """LLM, load_llama and perplexity_of_gguf run on the card unless the
+    caller asks for the CPU: where torch sees no CUDA device (as on this
+    CPU-only host) a call that names no device raises before any weight
+    is read, rather than running on the CPU."""
+    from gguf_tpu_torch.eval import perplexity_of_gguf
+    from gguf_tpu_torch.models import load_llama
+    from gguf_tpu_torch.models import loader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    read = []
+    monkeypatch.setattr(loader, "_load_weight",
+                        lambda *a, **k: read.append(a) or None)
+    for call in (lambda: LLM(checkpoint), lambda: load_llama(checkpoint),
+                 lambda: perplexity_of_gguf(checkpoint, list(range(40)))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not read
+
+
 def test_buckets():
     assert [LLM._bucket(n) for n in (1, 8, 9, 70, 300)] == [8, 8, 16, 128, 512]
     llm = LLM.__new__(LLM)
