@@ -43,10 +43,16 @@ Q4_K_M with bf16 activations (kernels K1-K4):
    K2 (tensor cores under "fast") at the same widths on the head and its
    first 1000 rows, and on K6's f32 output;
 2. serves 24 token-id prompts (5..300 tokens, 32 new tokens each, greedy)
-   through `LLM(max_batch=16, max_seq=2048).generate`, then its graph
-   phase at span 256 (88 K1 and 22 K4 launches per eager step required)
-   and a seeded sampling check through the graphs (temperature 0.8,
-   top-k 40: one seed twice gives equal ids, another seed other ids);
+   through `LLM(max_batch=16, max_seq=2048).generate`, holds the
+   engine's host-device sync count (`llama.host_syncs`, which the
+   benchmark's `prefill_syncs_per_ktok` reads) against the syncs
+   `torch.cuda.set_sync_debug_mode` reports over a prefill chunk at each
+   width the benchmark's chunks take and over a whole `generate` call
+   (`sync_check`), then runs its
+   graph phase at span 256 (88 K1 and 22 K4 launches per eager step
+   required) and a seeded sampling check through the graphs
+   (temperature 0.8, top-k 40: one seed twice gives equal ids, another
+   seed other ids);
 3. checks every logit of that run finite, and the card's logits for a
    16-token prompt against the CPU run of the same port (plain versions):
    within 1e-2 * max|ref| through 2 layers, 5e-2 through all 22.
@@ -191,6 +197,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1564,9 +1571,73 @@ def serve(llm: LLM, seed: int, required: tuple,
         f"{sum(prompt_lens)} prompt tokens in {chunks} chunks, decode "
         f"{st['decode_s']:.2f} s for {st['decode_tokens']} tokens = "
         f"{st['decode_tokens'] / st['decode_s']:.1f} decode tok/s at batch "
-        f"<= {MAX_BATCH}; end to end {st['tokens_per_s']:.1f} tok/s")
+        f"<= {MAX_BATCH}")
     log(f"launches on the main path: {json.dumps(launches)}")
     return launches
+
+
+# every padded width the benchmark's prefill chunks take (perfbench/
+# traffic: chat prompts of 32-512 tokens, long_prompt ones of 512-2048 in
+# 512-token chunks and their power-of-two tails)
+SYNC_WIDTHS = (8, 16, 32, 64, 128, 256, 512)
+SYNC_PROMPTS = (32, 173, 512, 1100)
+
+
+def torch_syncs(fn) -> tuple:
+    """(host-device syncs torch's sync debug mode reports, change of
+    `llama.host_syncs`) over fn()."""
+    n0 = llama_mod.host_syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    hits = sum("synchroniz" in str(w.message) for w in seen)
+    return hits, llama_mod.host_syncs - n0
+
+
+def sync_check(llm: LLM, seed: int) -> None:
+    """Holds `llama.host_syncs`, which the benchmark's
+    `prefill_syncs_per_ktok` reads through `stats["prefill_syncs"]`,
+    against the syncs torch reports: one prefill chunk at each of
+    SYNC_WIDTHS into slot 0 (n_layers + 2 above 16 tokens, else 2), then
+    a `generate` call (after one that captures its graphs) over prompts
+    of SYNC_PROMPTS tokens, whose `prefill_syncs` and decode chunks' reads
+    must make up the whole count."""
+    rng = np.random.default_rng(seed)
+    n_layers = llm.cfg.n_layers
+    for t in SYNC_WIDTHS:
+        ids = [int(v) for v in rng.integers(0, llm.cfg.vocab_size, t)]
+        got, counted = torch_syncs(lambda: llm._prefill_chunks(ids, 0))
+        want = 2 + (n_layers if t > 16 else 0)
+        log(f"prefill chunk t={t}: torch reports {got} syncs, host_syncs "
+            f"counted {counted}, expected {want}")
+        if not got == counted == want:
+            raise AssertionError(f"host_syncs miscounts a {t}-token chunk")
+    prompts = [[int(v) for v in rng.integers(0, llm.cfg.vocab_size, n)]
+               for n in SYNC_PROMPTS]
+    runs = []
+
+    def call():
+        runs.append(llm.generate(prompts, max_new_tokens=NEW_TOKENS,
+                                 seed=seed))
+
+    call()                                  # captures the decode graphs
+    llm.tracer.enabled = True
+    try:
+        got, counted = torch_syncs(call)
+    finally:
+        llm.tracer.enabled = False
+    chunks = sum(sp.name == "decode_chunk" for sp in llm.tracer.drain())
+    st = runs[-1][0].stats
+    log(f"generate over prompts of {SYNC_PROMPTS} tokens: torch reports "
+        f"{got} syncs, host_syncs counted {counted} = prefill_syncs "
+        f"{st['prefill_syncs']} + {chunks} decode chunks' reads")
+    if not got == counted == st["prefill_syncs"] + chunks:
+        raise AssertionError("host_syncs miscounts a generate call")
 
 
 def stochastic_check(llm: LLM, seed: int) -> None:
@@ -2426,6 +2497,8 @@ def smoke(seed: int, writers: Writers) -> list:
         compare_attention_tiles(gen, rep)
     with phase("serve Q4_K_M"):
         launches = serve(llm4, seed, Q4KM_KERNELS)
+    with phase("host-device syncs against torch's count"):
+        sync_check(llm4, seed)
     with phase("Q4_K_M decode chunk, graph vs eager; seeded sampling"):
         tok, pos, gen_step = _step_inputs(seed)
         graph_phase(llm4, tok, pos, 256, "TinyLlama Q4_K_M decode step, 16 "

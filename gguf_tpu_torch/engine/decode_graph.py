@@ -27,6 +27,10 @@ On the CPU nothing is captured: the same object runs the same chunk on
 the same static buffers, so the buffer logic (copy in, the cache updated
 in place, copy out) runs in the CPU tests. On cuda a failed capture or
 replay raises; nothing falls back to the eager loop.
+
+With the LLM's tracer on, a call records `copy_in`, `capture` (with its
+key's steps and span), `replay` (on the CPU: the eager run of the chunk)
+and `read` spans, all outside the captured code.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models import llama
 from ..models.llama import forward
 from .sampler import SamplerConfig, logprobs, sample
 
@@ -72,8 +77,9 @@ class _Bucket:
             .view(torch.float32).view(batch, steps, k)
 
     def read(self) -> Chunk:
-        """Every output in one device-to-host copy."""
+        """Every output in one device-to-host copy (a host-device sync)."""
         host = self.out.cpu().numpy()
+        llama.host_syncs += 1
         (b, steps), k, n = self.shape, self.k, self.shape[0] * self.shape[1]
         ids = host[:n].reshape(b, steps)
         if not k:
@@ -126,8 +132,10 @@ class DecodeGraphs:
         """`steps` decode iterations of `llm` from token ids `tokens` (B,)
         at positions `pos` (B,) (tensors or arrays); the outputs on the
         host."""
-        return self.launch(llm, tokens, pos, sampler, steps, span, generator,
-                           k).read()
+        bucket = self.launch(llm, tokens, pos, sampler, steps, span,
+                             generator, k)
+        with llm.tracer.span("read"):
+            return bucket.read()
 
     def launch(self, llm, tokens, pos, sampler: SamplerConfig, steps: int,
                span, generator, k: int = 0) -> _Bucket:
@@ -138,25 +146,30 @@ class DecodeGraphs:
         if stochastic and generator is not self.generator:
             raise ValueError("a stochastic decode chunk draws from the "
                              "engine's generator (LLM.generator)")
-        self._copy_in(tokens, pos)
+        tr = llm.tracer
+        with tr.span("copy_in"):
+            self._copy_in(tokens, pos)
         key = (steps, span, sampler, k, llm.opts)
         bucket = self.buckets.get(key)
         if bucket is None:
             bucket = _Bucket(self.inputs.shape[1], steps, k, self.device)
             if self.on_card:
-                self._capture(bucket, llm, key, stochastic)
+                with tr.span("capture", steps=steps, span=span):
+                    self._capture(bucket, llm, key, stochastic)
             self.buckets[key] = bucket
-        if bucket.graph is not None:
-            bucket.graph.replay()
-        else:
-            self._chunk(bucket, llm, key, generator)
+        with tr.span("replay"):
+            if bucket.graph is not None:
+                bucket.graph.replay()
+            else:
+                self._chunk(bucket, llm, key, generator)
         return bucket
 
     def _copy_in(self, tokens, pos) -> None:
         tok, p = torch.as_tensor(tokens), torch.as_tensor(pos)
         if self.on_card and tok.device.type == "cpu":
             # host arrays: one copy from pinned memory, once the last one
-            # has left it
+            # has left it (an event wait, not counted in llama.host_syncs:
+            # the last chunk's read has already waited for that copy)
             self._copied.synchronize()
             self._staging[0].copy_(tok)
             self._staging[1].copy_(p)

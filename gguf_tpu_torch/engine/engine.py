@@ -9,7 +9,8 @@ arguments, `_prefill_chunks`, `_bucket`, `_span_bucket`, and the jitted
 one KV cache; new requests take free slots as soon as they open, and
 sequences at different depths decode together in one forward step.
 Prefill runs per request in power-of-two padded chunks, eagerly; the
-cache is updated in place.
+cache is updated in place. `LLM.tracer` (`trace.py`), off by default,
+records the spans of each call.
 
 Prompts are token-id lists (the tokenizers are not ported yet). Not
 ported yet either: speculative decoding, the prefix cache, chat sessions,
@@ -26,10 +27,12 @@ import numpy as np
 import torch
 
 from ..gguf import GGUFReader
+from ..models import llama
 from ..models.llama import MMOpts, forward, fuse_llama_params, init_kv_cache
 from ..models.loader import load_llama
 from .decode_graph import Chunk, DecodeGraphs
 from .sampler import SamplerConfig, logprobs as chosen_logprobs, sample
+from .trace import Tracer
 
 
 @dataclass
@@ -39,9 +42,12 @@ class GenerationResult:
     finished: bool = False
     stop_reason: str = ""          # "eos" | "stop" (stop_ids) | "length"
     # batch-level stats shared by every result of one generate() call:
-    # wall_s and tokens_per_s are end to end; decode_s / decode_tokens
-    # cover the decode chunks alone (host clock, ends in a device sync),
-    # capture_s the part of decode_s that captured CUDA graphs;
+    # wall_s is end to end; prefill_s covers each request's prefill and
+    # first token, decode_s / decode_tokens the decode chunks alone (host
+    # clock, each ends in a device sync), capture_s the part of decode_s
+    # that captured CUDA graphs; prefill_tokens counts the prompt tokens,
+    # prefill_widths the prefill chunks by padded width ({t: chunks}),
+    # prefill_syncs the host-device syncs inside prefill_s;
     # decode_finite is False if any decode step's logits were not finite
     stats: dict = field(default_factory=dict)
     # when generate(logprobs=k): one {"logprob": f, "top": [(id, lp), ...]}
@@ -74,6 +80,7 @@ class LLM:
                                    self.device)
         self.graphs = DecodeGraphs(self.device, max_batch)
         self.generator = self.graphs.generator   # every draw of generate
+        self.tracer = Tracer()
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -98,15 +105,19 @@ class LLM:
         returns the logits row of chunk token `last_idx`."""
         cache_1 = [{name: c[slot:slot + 1] for name, c in layer.items()}
                    for layer in self.cache]      # views: writes land in place
+        # two copies from pageable host memory: each waits on the card
         tokens = torch.as_tensor(toks, device=self.device)
         pos = torch.tensor([start], dtype=torch.int32, device=self.device)
+        llama.host_syncs += 2
         logits, _ = forward(self.params, self.cfg, tokens, pos, cache_1,
                             self.opts, span=span)
         return logits[0, last_idx]
 
-    def _prefill_chunks(self, ids, slot: int, start: int = 0) -> torch.Tensor:
+    def _prefill_chunks(self, ids, slot: int, start: int = 0,
+                        widths: dict | None = None) -> torch.Tensor:
         """Prefill `ids` at start.. in PREFILL_CHUNK pieces with power-of-two
-        tail buckets, halved until the padded call fits the cache."""
+        tail buckets, halved until the padded call fits the cache;
+        `widths`, where given, counts the chunks by padded width."""
         n = len(ids)
         if start + n >= self.max_seq:
             raise ValueError(f"prompt of {n} tokens at {start} does not fit "
@@ -122,7 +133,11 @@ class LLM:
             toks = np.zeros((1, tp), np.int32)
             toks[0, :take] = ids[off:off + take]
             span = self._span_bucket(start + off + tp)
-            logits = self._prefill(toks, slot, start + off, take - 1, span)
+            with self.tracer.span("prefill_chunk", t=tp):
+                logits = self._prefill(toks, slot, start + off, take - 1,
+                                       span)
+            if widths is not None:
+                widths[tp] = widths.get(tp, 0) + 1
             off += take
             if off >= n:
                 return logits
@@ -167,8 +182,17 @@ class LLM:
         finished)`, called after each prefill and decode chunk with the
         request's new ids; `logprobs` = k > 0 records per generated token
         the chosen token's logprob and the top k in `.logprobs`. `seed`
-        seeds `self.generator`, which every draw uses."""
-        t_start = time.perf_counter()
+        seeds `self.generator`, which every draw uses. With `self.tracer`
+        on, the call's spans sit under one `generate` span."""
+        with self.tracer.span("generate"):
+            return self._generate(prompts, max_new_tokens, sampler, seed,
+                                  stop_at_eos, decode_chunk, on_tokens,
+                                  logprobs, stop_ids)
+
+    def _generate(self, prompts, max_new_tokens, sampler, seed, stop_at_eos,
+                  decode_chunk, on_tokens, logprobs, stop_ids) -> list:
+        t_start = time.perf_counter_ns()
+        tr = self.tracer
         gen = self.generator
         gen.manual_seed(seed)
         queue = []
@@ -189,15 +213,16 @@ class LLM:
         def flush():
             if on_tokens is None:
                 return
-            for rid, res in results.items():
-                n = len(res.token_ids)
-                if n > emitted[rid] or (res.finished
-                                        and rid not in done_emitted):
-                    on_tokens(rid, res.token_ids[emitted[rid]:n],
-                              res.finished)
-                    emitted[rid] = n
-                    if res.finished:
-                        done_emitted.add(rid)
+            with tr.span("flush"):
+                for rid, res in results.items():
+                    n = len(res.token_ids)
+                    if n > emitted[rid] or (res.finished
+                                            and rid not in done_emitted):
+                        on_tokens(rid, res.token_ids[emitted[rid]:n],
+                                  res.finished)
+                        emitted[rid] = n
+                        if res.finished:
+                            done_emitted.add(rid)
 
         slots: list = [None] * self.max_batch     # request id per slot
         pos = np.zeros(self.max_batch, np.int64)
@@ -205,8 +230,10 @@ class LLM:
         budget = np.zeros(self.max_batch, np.int64)
         eos = self.eos_id
         stop_set = frozenset(int(t) for t in (stop_ids or ()))
-        timing = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
-                  "decode_finite": True}
+        prefill_ns = decode_ns = 0
+        timing = {"decode_tokens": 0, "decode_finite": True,
+                  "prefill_tokens": 0, "prefill_widths": {},
+                  "prefill_syncs": 0}
         capture_s = self.graphs.capture_s
 
         def maybe_finish(s, tok):
@@ -228,26 +255,40 @@ class LLM:
             slots[s] = None
 
         def admit():
-            for s in range(self.max_batch):
-                if slots[s] is not None or not queue:
-                    continue
-                rid, ids = queue.pop()
-                t0 = time.perf_counter()
-                logits = self._prefill_chunks(ids, s)
-                first_t = sample(logits[None, :], sampler, gen)
-                first = int(first_t[0])
-                if logprobs:
-                    lp, tid, tlp = (x[0].tolist() for x in chosen_logprobs(
-                        logits[None, :], first_t, logprobs))
-                    results[rid].logprobs.append(
-                        {"logprob": lp, "top": list(zip(tid, tlp))})
-                timing["prefill_s"] += time.perf_counter() - t0
-                slots[s] = rid
-                pos[s] = len(ids)
-                last_tok[s] = first
-                budget[s] = max_new_tokens - 1
-                results[rid].token_ids.append(first)
-                maybe_finish(s, first)
+            nonlocal prefill_ns
+            free = [s for s in range(self.max_batch) if slots[s] is None]
+            if not free or not queue:
+                return
+            with tr.span("admit"):
+                for s in free[:len(queue)]:
+                    rid, ids = queue.pop()
+                    t0 = time.perf_counter_ns()
+                    syncs = llama.host_syncs
+                    with tr.span("prefill", t0) as sp:
+                        logits = self._prefill_chunks(
+                            ids, s, widths=timing["prefill_widths"])
+                        first_t = sample(logits[None, :], sampler, gen)
+                        first = int(first_t[0])
+                        llama.host_syncs += 1
+                        if logprobs:
+                            lp, tid, tlp = (x[0].tolist() for x in
+                                            chosen_logprobs(logits[None, :],
+                                                            first_t,
+                                                            logprobs))
+                            llama.host_syncs += 3
+                            results[rid].logprobs.append(
+                                {"logprob": lp, "top": list(zip(tid, tlp))})
+                        t1 = time.perf_counter_ns()
+                        sp.end(t1)
+                    prefill_ns += t1 - t0
+                    timing["prefill_tokens"] += len(ids)
+                    timing["prefill_syncs"] += llama.host_syncs - syncs
+                    slots[s] = rid
+                    pos[s] = len(ids)
+                    last_tok[s] = first
+                    budget[s] = max_new_tokens - 1
+                    results[rid].token_ids.append(first)
+                    maybe_finish(s, first)
 
         admit()
         flush()
@@ -267,39 +308,43 @@ class LLM:
             active = np.array([s is not None for s in slots])
             pos_dev = np.where(active, pos, self.max_seq)
             span = self._span_bucket(max(int(pos[s]) for s in live) + steps)
-            t0 = time.perf_counter()
-            chunk = self._decode(last_tok, pos_dev, sampler, steps, span,
-                                 gen, logprobs)
-            timing["decode_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter_ns()
+            with tr.span("decode_chunk", t0) as sp:
+                chunk = self._decode(last_tok, pos_dev, sampler, steps, span,
+                                     gen, logprobs)
+                t1 = time.perf_counter_ns()
+                sp.end(t1)
+            decode_ns += t1 - t0
             timing["decode_finite"] &= chunk.finite
-            for j in range(steps):
-                for s in range(self.max_batch):
-                    if slots[s] is None:
-                        continue
-                    tok = int(chunk.ids[s, j])
-                    res = results[slots[s]]
-                    if logprobs:
-                        res.logprobs.append({
-                            "logprob": float(chunk.logprob[s, j]),
-                            "top": [(int(t), float(v)) for t, v in
-                                    zip(chunk.top_ids[s, j],
-                                        chunk.top_logprobs[s, j])]})
-                    res.token_ids.append(tok)
-                    timing["decode_tokens"] += 1
-                    pos[s] += 1
-                    last_tok[s] = tok
-                    budget[s] -= 1
-                    maybe_finish(s, tok)
+            with tr.span("emit"):
+                for j in range(steps):
+                    for s in range(self.max_batch):
+                        if slots[s] is None:
+                            continue
+                        tok = int(chunk.ids[s, j])
+                        res = results[slots[s]]
+                        if logprobs:
+                            res.logprobs.append({
+                                "logprob": float(chunk.logprob[s, j]),
+                                "top": [(int(t), float(v)) for t, v in
+                                        zip(chunk.top_ids[s, j],
+                                            chunk.top_logprobs[s, j])]})
+                        res.token_ids.append(tok)
+                        timing["decode_tokens"] += 1
+                        pos[s] += 1
+                        last_tok[s] = tok
+                        budget[s] -= 1
+                        maybe_finish(s, tok)
             admit()
             flush()
 
         out = [results[i] for i in sorted(results)]
         flush()
-        wall = time.perf_counter() - t_start
-        new_tokens = sum(len(r.token_ids) for r in out)
-        stats = {"wall_s": wall, "new_tokens": new_tokens,
-                 "tokens_per_s": new_tokens / wall if wall else 0.0,
-                 "capture_s": self.graphs.capture_s - capture_s, **timing}
+        stats = {"wall_s": (time.perf_counter_ns() - t_start) / 1e9,
+                 "new_tokens": sum(len(r.token_ids) for r in out),
+                 "capture_s": self.graphs.capture_s - capture_s,
+                 "prefill_s": prefill_ns / 1e9, "decode_s": decode_ns / 1e9,
+                 **timing}
         for r in out:
             r.stats = stats
         return out

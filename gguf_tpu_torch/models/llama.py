@@ -12,6 +12,12 @@ f32.
 
 PyTorch runs eagerly and the port updates the KV cache IN PLACE:
 `forward` returns the same cache list it was given.
+
+`host_syncs` counts the port's host-device syncs, by site: the prefill
+arm's `pos.tolist()` once per layer here, and the engine's host copies
+and reads, each of which adds to it where it makes one. On the card each
+count is a sync that torch's sync debug mode reports; the CPU counts the
+same sites. The engine's spans record its change over each prefill chunk.
 """
 
 from __future__ import annotations
@@ -120,6 +126,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return (xf * cos2 + partner * sin2).to(x.dtype)
 
 
+host_syncs = 0
+
 # --------------------------------------------------------- INT8 KV cache ---
 
 
@@ -141,9 +149,11 @@ def _cache_update(cache_l: dict, new_k: torch.Tensor, new_v: torch.Tensor,
     """Write T new rows per sequence at pos (the long-prefill arm, T > 16),
     in place. The start clamps to [0, S - T] like the reference's
     dynamic_update_slice; callers keep pos + T <= S."""
+    global host_syncs
     qk, sk = quantize_kv(new_k)
     qv, sv = quantize_kv(new_v)
     s, t = cache_l["k"].shape[2], new_k.shape[2]
+    host_syncs += 1
     for b, p in enumerate(pos.tolist()):
         p = min(max(int(p), 0), s - t)
         cache_l["k"][b, :, p:p + t] = qk[b]
