@@ -15,10 +15,12 @@ and Llama-2-7B as Q4_K_M. It then runs the main paths below, each with
 every kernel's launch counter reset just before it and read just after.
 
 Every serving run below is two `generate` calls over the same prompts:
-the first captures each decode chunk's bucket (steps, span, sampler) as
-a CUDA graph, the second only replays them, is timed, and must give the
-same ids; the launch counters move in eager runs and captures, never in
-replays. Each served configuration also gets a graph phase (`graph_phase`:
+the first captures each decode chunk's bucket (steps, span, sampler) and
+each prefill chunk's (t, span) as a CUDA graph, the second only replays
+them, is timed, and must give the same ids; the launch counters move in
+eager runs and captures, never in replays. Each timed 512-token prefill
+chunk is timed as its replay and as the eager chunk (wall and device
+time). Each served configuration also gets a graph phase (`graph_phase`:
 TinyLlama Q4_K_M, Q5_K_M under act_quant and bf16, Q8_0, Q4_0, the Q2_K
 mix, Llama-2-7B at spans 512 and 4096): 8 greedy steps from one saved
 cache through the eager loop (`_decode_eager`) and through the graph
@@ -34,7 +36,10 @@ Q4_K_M with bf16 activations (kernels K1-K4):
    shapes the serving path gives them, timing both with CUDA events (K4,
    one cluster launch per call, "fast" and "high", at random positions and
    at pos 0, pos = span - t and an inactive slot, read-only, with window
-   and softcap, and with the fused t = 1 insert, the cache bit-equal; and
+   and softcap, and with the fused t = 1 insert, the cache bit-equal; K3
+   and K4 as a prefill chunk's graph launches them, one sequence whose
+   cache row (slot 11 of 16) is read on the device, at t = 1, 8 and 16,
+   every other slot left as it was; and
    where a CTA walks its keys in tiles, 192 query heads at span 8192): K1
    (tensor cores under "fast") at n = 1, 8, 9, 16, 17, 64, 65 and 512, both
    sides of each of its tile widths, on every projection and on 256- and
@@ -47,8 +52,8 @@ Q4_K_M with bf16 activations (kernels K1-K4):
    engine's host-device sync count (`llama.host_syncs`, which the
    benchmark's `prefill_syncs_per_ktok` reads) against the syncs
    `torch.cuda.set_sync_debug_mode` reports over a prefill chunk at each
-   width the benchmark's chunks take and over a whole `generate` call
-   (`sync_check`), then runs its
+   width the benchmark's chunks take (none) and over a whole `generate`
+   call (one a prompt and one a decode chunk; `sync_check`), then runs its
    graph phase at span 256 (88 K1 and 22 K4 launches per eager step
    required) and a seeded sampling check through the graphs
    (temperature 0.8, top-k 40: one seed twice gives equal ids, another
@@ -806,7 +811,9 @@ def compare_attention(gen: torch.Generator, rep: Report, *, h: int,
     cache then bit-equal to K3's plain version), "fast" on bf16 queries and
     "high" on f32 ones, at random positions (timed) and at the edges (pos
     0, pos = span - t and an inactive slot at pos = s, which reads the whole
-    span and writes nothing), with window + softcap at span 512; `tag`
+    span and writes nothing), with window + softcap at span 512; then at t
+    in ATTN_TS and 16 in the form a prefill chunk takes, one sequence whose
+    cache row is read on the device (`attention_rows_case`); `tag`
     prefixes the shape names."""
     b = MAX_BATCH
     for t in ATTN_TS:
@@ -841,6 +848,73 @@ def compare_attention(gen: torch.Generator, rep: Report, *, h: int,
                     attention_case(rep, q, kn, vn, cache, pp, t, span, prec,
                                    f"{tag}b{b} t={t} span={span}{where}",
                                    timed=pp is p)
+    for t in ATTN_TS + (16,):
+        attention_rows_case(gen, rep, h=h, kvh=kvh, hd=hd, s=s, t=t,
+                            spans=spans, tag=tag)
+
+
+# the cache row a prefill chunk's graph addresses in `attention_rows_case`
+ROWS_SLOT = 11
+
+
+def attention_rows_case(gen: torch.Generator, rep: Report, *, h: int,
+                        kvh: int, hd: int, s: int, t: int, spans: tuple,
+                        tag: str) -> None:
+    """K3 and K4 as a prefill chunk's graph launches them: one sequence
+    over the MAX_BATCH-slot cache, its row given on the device (`rows` =
+    [ROWS_SLOT]), against their plain versions with the same `rows`. K3
+    (t <= 16) leaves the cache bit-equal to the plain insert and every
+    other slot as it was; at t <= 8 K4 read-only and with the insert
+    (`decode_attention_update`: one fused launch at t = 1, K3 then K4
+    above) within TOL_ATTN, "fast" and "high", the cache likewise, where
+    `llama.attention` takes K4; each at random positions and at pos =
+    span - t."""
+    b = MAX_BATCH
+    cache = _random_cache(gen, b, kvh, s, hd)
+    rows = torch.tensor([ROWS_SLOT], dtype=torch.int32, device=DEVICE)
+    others = torch.arange(b, device=DEVICE) != ROWS_SLOT
+    kn = torch.randn((1, kvh, t, hd), generator=gen, device=DEVICE) * 2
+    vn = torch.randn((1, kvh, t, hd), generator=gen, device=DEVICE)
+
+    def check_cache(got, ref, what):
+        for g, r, c in zip(got, ref, cache):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{what}: cache differs")
+            if not torch.equal(g[others], c[others]):
+                raise AssertionError(f"{what}: another slot's rows changed")
+
+    for span in spans:
+        for p0, where in ((int(torch.randint(0, span - t + 1, (1,),
+                                             generator=gen, device=DEVICE)),
+                           ""), (span - t, " edge")):
+            pos = torch.tensor([p0], dtype=torch.int32, device=DEVICE)
+            shape = f"{tag}b1 rows=[{ROWS_SLOT}] t={t} span={span}{where}"
+            got = [c.clone() for c in cache]
+            ref = [c.clone() for c in cache]
+            kv_cache_insert(kn, vn, *got, pos, rows=rows)
+            kv_cache_insert_plain(kn, vn, *ref, pos, rows=rows)
+            check_cache(got, ref, f"kv_cache_insert {shape}")
+            rep.add("kv_cache_insert", shape, 0.0, 0.0, 0.0)
+            if t > 8 or kvh * span * hd > PALLAS_ATTN_MAX_ELEMS:
+                continue                # the f32 arm: llama.attention
+            for prec, dt in (("fast", torch.bfloat16), ("high", torch.float32)):
+                q = torch.randn((1, h, t, hd), generator=gen,
+                                device=DEVICE).to(dt)
+                kw = dict(t=t, precision=prec, span=span, rows=rows)
+                suffix = "" if prec == "fast" else " high"
+                err, rel = rel_err(decode_attention(q, *cache, pos, **kw),
+                                   decode_attention_plain(q, *cache, pos, **kw))
+                rep.add("decode_attention", shape + suffix, err, rel,
+                        TOL_ATTN)
+                got = [c.clone() for c in cache]
+                ref = [c.clone() for c in cache]
+                out = decode_attention_update(q, kn, vn, *got, pos, **kw)[0]
+                kv_cache_insert_plain(kn, vn, *ref, pos, rows=rows)
+                check_cache(got, ref, f"decode_attention {shape} insert")
+                err, rel = rel_err(out, decode_attention_plain(q, *ref, pos,
+                                                               **kw))
+                rep.add("decode_attention", f"{shape} insert{suffix}", err,
+                        rel, TOL_ATTN)
 
 
 def attention_case(rep: Report, q, kn, vn, cache, p, t: int, span: int,
@@ -1507,45 +1581,34 @@ def serve(llm: LLM, seed: int, required: tuple,
           prompt_lens: tuple = PROMPT_LENS, forbidden: tuple = ()) -> dict:
     """A main path: continuous batching over seeded prompts of
     `prompt_lens` tokens, twice: a warm-up run that captures every decode
-    bucket the run takes as a CUDA graph, then the timed run, which only
-    replays them (its stats report no capture time) and must give the
-    same ids. Every logit is checked finite on the device with no host
-    sync per step: the prefill forwards' through a flag each one ANDs
-    into, the decode chunks' through the flag each graph writes
-    (`decode_finite`). Every kernel in `required` launched over both
-    runs and none in `forbidden` (the counters move in eager runs and in
-    captures, not in replays)."""
+    and prefill chunk the run takes as a CUDA graph, then the timed run,
+    which only replays them (its stats report no capture time and a
+    replay for every prefill chunk) and must give the same ids. Every
+    logit is checked finite on the device with no host sync per step:
+    the prefill chunks' through the flag each one ANDs into
+    (`graphs.prefill_finite`, read once after both runs), the decode
+    chunks' through the flag each graph writes (`decode_finite`).
+    Every kernel in `required` launched over both runs and none in
+    `forbidden` (the counters move in eager runs and in captures, not in
+    replays)."""
     rng = np.random.default_rng(seed)
     prompts = [[int(v) for v in rng.integers(0, llm.cfg.vocab_size, n)]
                for n in prompt_lens]
-    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
-    n_fwd = [0]
-    plain_forward = engine_mod.forward
-
-    def checked_forward(*args, **kwargs):
-        logits, cache = plain_forward(*args, **kwargs)
-        finite.logical_and_(torch.isfinite(logits).all())
-        n_fwd[0] += 1
-        return logits, cache
-
     for fn in WRAPPERS.values():
         fn.launches = 0
-    engine_mod.forward = checked_forward
+    llm.graphs.prefill_finite.fill_(True)
     runs = []
-    try:
-        for _ in range(2):
-            runs.append(llm.generate(prompts, max_new_tokens=NEW_TOKENS,
-                                     sampler=SamplerConfig(), seed=seed))
-            torch.cuda.synchronize()
-    finally:
-        engine_mod.forward = plain_forward
+    for _ in range(2):
+        runs.append(llm.generate(prompts, max_new_tokens=NEW_TOKENS,
+                                 sampler=SamplerConfig(), seed=seed))
+        torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     warm, res = runs
     if any(len(r) != len(prompts) or any(
             len(x.token_ids) != NEW_TOKENS or not x.finished for x in r)
             for r in runs):
         raise AssertionError("generate did not answer every request in full")
-    if not bool(finite) or not all(r[0].stats["decode_finite"]
+    if not bool(llm.graphs.prefill_finite) or not all(r[0].stats["decode_finite"]
                                    for r in runs):
         raise AssertionError("non-finite logits in the serving run")
     if [r.token_ids for r in warm] != [r.token_ids for r in res]:
@@ -1553,6 +1616,10 @@ def serve(llm: LLM, seed: int, required: tuple,
                              "capturing one")
     if res[0].stats["capture_s"]:
         raise AssertionError("the timed run captured a graph")
+    if res[0].stats["prefill_replays"] != sum(
+            res[0].stats["prefill_widths"].values()):
+        raise AssertionError("a prefill chunk of the timed run was not a "
+                             "graph replay")
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -1562,11 +1629,13 @@ def serve(llm: LLM, seed: int, required: tuple,
     st = res[0].stats
     chunks = sum(-(-n // engine_mod.PREFILL_CHUNK) for n in prompt_lens)
     log(f"warm-up run: {warm[0].stats['wall_s']:.2f} s, of which "
-        f"{warm[0].stats['capture_s']:.2f} s captured decode graphs; "
-        f"{len(llm.graphs.keys())} graphs held, pool "
+        f"{warm[0].stats['capture_s']:.2f} s captured graphs; "
+        f"{len(llm.graphs.keys())} decode and "
+        f"{len(llm.graphs.prefill_keys())} prefill graphs held, pool "
         f"{llm.graphs.pool_bytes()} bytes")
     log(f"served {len(res)} requests x {NEW_TOKENS} tokens (the timed run), "
-        f"{n_fwd[0]} prefill forwards in both runs, all logits finite: wall "
+        f"{sum(sum(r[0].stats['prefill_widths'].values()) for r in runs)} "
+        f"prefill chunks in both runs, every logit finite: wall "
         f"{st['wall_s']:.2f} s, prefill {st['prefill_s']:.2f} s for "
         f"{sum(prompt_lens)} prompt tokens in {chunks} chunks, decode "
         f"{st['decode_s']:.2f} s for {st['decode_tokens']} tokens = "
@@ -1603,19 +1672,19 @@ def sync_check(llm: LLM, seed: int) -> None:
     """Holds `llama.host_syncs`, which the benchmark's
     `prefill_syncs_per_ktok` reads through `stats["prefill_syncs"]`,
     against the syncs torch reports: one prefill chunk at each of
-    SYNC_WIDTHS into slot 0 (n_layers + 2 above 16 tokens, else 2), then
-    a `generate` call (after one that captures its graphs) over prompts
-    of SYNC_PROMPTS tokens, whose `prefill_syncs` and decode chunks' reads
-    must make up the whole count."""
+    SYNC_WIDTHS into slot 0, replaying the graph a chunk into slot 1
+    captured (none), then a `generate` call (after one that captures its
+    graphs) over prompts of SYNC_PROMPTS tokens, whose `prefill_syncs`
+    (one first-token read a prompt) and decode chunks' reads must make up
+    the whole count."""
     rng = np.random.default_rng(seed)
-    n_layers = llm.cfg.n_layers
     for t in SYNC_WIDTHS:
         ids = [int(v) for v in rng.integers(0, llm.cfg.vocab_size, t)]
+        llm._prefill_chunks(ids, 1)
         got, counted = torch_syncs(lambda: llm._prefill_chunks(ids, 0))
-        want = 2 + (n_layers if t > 16 else 0)
         log(f"prefill chunk t={t}: torch reports {got} syncs, host_syncs "
-            f"counted {counted}, expected {want}")
-        if not got == counted == want:
+            f"counted {counted}, expected 0")
+        if not got == counted == 0:
             raise AssertionError(f"host_syncs miscounts a {t}-token chunk")
     prompts = [[int(v) for v in rng.integers(0, llm.cfg.vocab_size, n)]
                for n in SYNC_PROMPTS]
@@ -1636,7 +1705,8 @@ def sync_check(llm: LLM, seed: int) -> None:
     log(f"generate over prompts of {SYNC_PROMPTS} tokens: torch reports "
         f"{got} syncs, host_syncs counted {counted} = prefill_syncs "
         f"{st['prefill_syncs']} + {chunks} decode chunks' reads")
-    if not got == counted == st["prefill_syncs"] + chunks:
+    if not (got == counted == st["prefill_syncs"] + chunks
+            and st["prefill_syncs"] == len(SYNC_PROMPTS)):
         raise AssertionError("host_syncs miscounts a generate call")
 
 
@@ -2055,36 +2125,47 @@ def log_groups(kern: list, runs: int, unit: str) -> dict:
 
 
 def prefill_chunk(llm: LLM, toks: np.ndarray, start: int, label: str) -> None:
-    """One PREFILL_CHUNK-token prefill chunk into slot 0 at `start`: the
-    host clock over 3 calls ending in a sync, then `torch.profiler` over one
-    (device busy time, the top kernels, the sums of KERNEL_GROUPS)."""
+    """One PREFILL_CHUNK-token prefill chunk into slot 0 at `start`, as
+    `_prefill` runs it (a CUDA graph replay, its first call capturing;
+    on a tree without prefill graphs the eager chunk) and, where the tree
+    has it, as the eager chunk `_prefill_eager`: for each the host clock
+    over 3 calls ending in a sync, then `torch.profiler` over one (device
+    busy time, the top kernels, the sums of KERNEL_GROUPS)."""
     chunk = engine_mod.PREFILL_CHUNK
     span = llm._span_bucket(start + chunk)
+    ways = ({"replay": llm._prefill, "eager": llm._prefill_eager}
+            if hasattr(llm, "_prefill_eager") else {"eager": llm._prefill})
+    walls = {}
+    for way, fn in ways.items():
+        def run():
+            fn(toks, 0, start, chunk - 1, span)
 
-    def run():
-        llm._prefill(toks, 0, start, chunk - 1, span)
-
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 3 * 1e3
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kern = sorted((e for e in prof.key_averages()
-                   if e.device_type.name == "CUDA"),
-                  key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    log(f"{label} prefill of a {chunk}-token chunk at {start}, span {span}: "
-        f"{wall:.1f} ms, device busy {busy:.2f} ms; top 5:")
-    for e in kern[:5]:
-        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
-            f"{e.key[:70]}")
-    log_groups(kern, 1, "")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.key_averages()
+                       if e.device_type.name == "CUDA"),
+                      key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        walls[way] = wall
+        log(f"{label} prefill of a {chunk}-token chunk at {start}, span "
+            f"{span}, {way}: {wall:.1f} ms, device busy {busy:.2f} ms "
+            f"(wall / device {wall / busy:.3f}); top 5:")
+        for e in kern[:5]:
+            log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
+                f"{e.key[:70]}")
+        log_groups(kern, 1, "")
+    if len(walls) == 2:
+        log(f"{label} prefill chunk at {start}: eager {walls['eager']:.1f} "
+            f"ms -> replay {walls['replay']:.1f} ms of wall")
 
 
 def profile_7b_decode(llm: LLM, seed: int, hbm_gbs: float) -> None:

@@ -9,6 +9,9 @@
 // division and round-half-to-even. This file is built without
 // --use_fast_math, so the codes are bit-identical to the reference. Rows
 // outside [0, S) are skipped: inactive engine slots step at pos = max_seq.
+// K3 and K4 take an optional row index: sequence b reads and writes cache
+// batch row cache_rows[b] (read from device memory, so a prefill chunk's
+// CUDA graph serves every slot), or row b where it is NULL.
 //
 // K4 replaces gguf_tpu/ops/attention.py:_attn_kernel (decode_attention)
 // and :_fused_attn_kernel (decode_attention_update at t = 1), in one launch
@@ -75,17 +78,20 @@ template <int HD>
 __global__ void __launch_bounds__(128)
 kv_insert_kernel(const float* __restrict__ kn, const float* __restrict__ vn,
                  int8_t* k, float* ks, int8_t* v, float* vs,
-                 const int* __restrict__ pos, int KVH, int T, int S) {
+                 const int* __restrict__ pos, const int* __restrict__ cache_rows, int KVH,
+                 int T, int S) {
   const int bh = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p0 = pos[bh / KVH];
+  const int b = bh / KVH;
+  const int p0 = pos[b];
+  const size_t cbh = static_cast<size_t>(cache_rows ? cache_rows[b] : b) * KVH + bh % KVH;
   for (int item = warp; item < 2 * T; item += blockDim.x >> 5) {
     const bool is_v = item >= T;
     const int tj = item % T;
     const int row = p0 + tj;
     if (row < 0 || row >= S) continue;
     const size_t src = (static_cast<size_t>(bh) * T + tj) * HD;
-    const size_t dst = static_cast<size_t>(bh) * S + row;
+    const size_t dst = cbh * S + row;
     if (is_v) quantize_row<HD>(vn + src, v + dst * HD, vs + dst, lane);
     else quantize_row<HD>(kn + src, k + dst * HD, ks + dst, lane);
   }
@@ -122,8 +128,8 @@ template <int HD, int RB>
 __global__ void __launch_bounds__(NTHREADS, RB == 1 ? 4 : 2)
 attn_kernel(const float* __restrict__ q, const float* __restrict__ kn,
             const float* __restrict__ vn, int8_t* k, float* ks, int8_t* v,
-            float* vs, const int* __restrict__ pos, float* __restrict__ out,
-            int KVH, int G, int T, int S, int span, float scale,
+            float* vs, const int* __restrict__ pos, const int* __restrict__ cache_rows,
+            float* __restrict__ out, int KVH, int G, int T, int S, int span, float scale,
             float softcap, int window, int fast, int insert, int kt) {
   constexpr int PER = HD / 32;   // p.v columns per lane
   namespace cg = cooperative_groups;
@@ -145,11 +151,13 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ kn,
   float* new_scale = smem + L.kv + HD / 2;   // [0] K's, [1] V's
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t bh = static_cast<size_t>(blockIdx.z) * KVH + blockIdx.y;
+  const size_t cbh = static_cast<size_t>(cache_rows ? cache_rows[blockIdx.z] : blockIdx.z) * KVH +
+                     blockIdx.y;
   const int p0 = pos[blockIdx.z];
-  int8_t* kc = k + bh * S * HD;
-  int8_t* vc = v + bh * S * HD;
-  float* ksc = ks + bh * S;
-  float* vsc = vs + bh * S;
+  int8_t* kc = k + cbh * S * HD;
+  int8_t* vc = v + cbh * S * HD;
+  float* ksc = ks + cbh * S;
+  float* vsc = vs + cbh * S;
 
   // the cluster's barrier and its shared memory; a lone CTA its own
   auto csync = [&] {
@@ -374,8 +382,8 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ kn,
 
 template <int HD, int RB>
 int launch_attn(const void* q, const void* kn, const void* vn, void* k, void* ks, void* v,
-                void* vs, const void* pos, void* out, int B, int KVH, int G, int T, int S,
-                int span, float scale, float softcap, int window, int fast, int insert,
+                void* vs, const void* pos, const void* rows, void* out, int B, int KVH, int G,
+                int T, int S, int span, float scale, float softcap, int window, int fast, int insert,
                 int clusters, int kt, cudaStream_t st) {
   const size_t smem = static_cast<size_t>(AttnSmem(G * T, HD, RB, kt).total) * sizeof(float);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
@@ -401,22 +409,26 @@ int launch_attn(const void* q, const void* kn, const void* vn, void* k, void* ks
       &cfg, kernel, static_cast<const float*>(q), static_cast<const float*>(kn),
       static_cast<const float*>(vn), static_cast<int8_t*>(k), static_cast<float*>(ks),
       static_cast<int8_t*>(v), static_cast<float*>(vs), static_cast<const int*>(pos),
-      static_cast<float*>(out), KVH, G, T, S, span, scale, softcap, window, fast, insert, kt));
+      static_cast<const int*>(rows), static_cast<float*>(out), KVH, G, T, S, span, scale,
+      softcap, window, fast, insert, kt));
 }
 
 }  // namespace
 
-// kn, vn (B, KVH, T, HD) f32; k, v (B, KVH, S, HD) int8; ks, vs (B, KVH, S)
-// f32; pos (B,) int32.
+// kn, vn (B, KVH, T, HD) f32; k, v (Bc, KVH, S, HD) int8; ks, vs (Bc, KVH,
+// S) f32; pos (B,) int32; rows (B,) int32, the cache row of each sequence
+// (NULL: sequence b writes row b).
 extern "C" int kv_cache_insert_launch(const void* kn, const void* vn, void* k,
                                       void* ks, void* v, void* vs,
-                                      const void* pos, int B, int KVH, int T,
-                                      int S, int HD, void* stream) {
+                                      const void* pos, const void* rows, int B,
+                                      int KVH, int T, int S, int HD,
+                                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * KVH);
 #define K3_ARGS static_cast<const float*>(kn), static_cast<const float*>(vn), \
     static_cast<int8_t*>(k), static_cast<float*>(ks), static_cast<int8_t*>(v), \
-    static_cast<float*>(vs), static_cast<const int*>(pos), KVH, T, S
+    static_cast<float*>(vs), static_cast<const int*>(pos), static_cast<const int*>(rows), \
+    KVH, T, S
   if (HD == 64) kv_insert_kernel<64><<<grid, 128, 0, st>>>(K3_ARGS);
   else if (HD == 128) kv_insert_kernel<128><<<grid, 128, 0, st>>>(K3_ARGS);
   else return static_cast<int>(cudaErrorInvalidValue);
@@ -424,14 +436,15 @@ extern "C" int kv_cache_insert_launch(const void* kn, const void* vn, void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q (B, KVH*G, T, HD) f32; out likewise; flags bit 0 = fast (bf16
-// operands), bit 1 = insert (T == 1, kn/vn (B, KVH, 1, HD) f32); clusters
-// (1-8) CTAs per (batch, KV head) and a key tile of tile_keys, as
-// ops/attention.py:k4_plan picks them.
+// q (B, KVH*G, T, HD) f32; out likewise; the cache and rows as K3's;
+// flags bit 0 = fast (bf16 operands), bit 1 = insert (T == 1, kn/vn (B,
+// KVH, 1, HD) f32); clusters (1-8) CTAs per (batch, KV head) and a key
+// tile of tile_keys, as ops/attention.py:k4_plan picks them.
 extern "C" int decode_attention_launch(const void* q, const void* kn,
                                        const void* vn, void* k, void* ks,
                                        void* v, void* vs, const void* pos,
-                                       void* out, int B, int KVH, int G, int T,
+                                       const void* rows, void* out, int B,
+                                       int KVH, int G, int T,
                                        int S, int span, int HD, float scale,
                                        float softcap, int window, int flags,
                                        int clusters, int tile_keys,
@@ -441,7 +454,7 @@ extern "C" int decode_attention_launch(const void* q, const void* kn,
       tile_keys < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_ARGS q, kn, vn, k, ks, v, vs, pos, out, B, KVH, G, T, S, span, scale, softcap, \
+#define K4_ARGS q, kn, vn, k, ks, v, vs, pos, rows, out, B, KVH, G, T, S, span, scale, softcap, \
     window, flags & 1, insert, clusters, tile_keys, st
   const bool one = G * T == 1;
   if (HD == 64) return one ? launch_attn<64, 1>(K4_ARGS) : launch_attn<64, 8>(K4_ARGS);

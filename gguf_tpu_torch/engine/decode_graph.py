@@ -1,36 +1,52 @@
-"""The decode chunk as CUDA graphs: the counterpart of the reference's
-compiled `_decode` (`gguf_tpu/engine/engine.py`), one `jax.jit` around a
-`lax.scan` of `steps` iterations (forward, sample, pos + 1) that runs a
-whole chunk as one dispatch and one device-to-host copy.
+"""The decode and prefill chunks as CUDA graphs: the counterpart of the
+reference's compiled `_decode` (`gguf_tpu/engine/engine.py`), one
+`jax.jit` around a `lax.scan` of `steps` iterations (forward, sample, pos
++ 1) that runs a whole chunk as one dispatch and one device-to-host copy,
+and of its jitted prefill chunk.
 
 Eager PyTorch issues each step's kernels from the host (about 2,000 per
-step on Llama-2-7B). `DecodeGraphs` captures the same chunk once per key
-(steps, span, sampler, logprobs k, MMOpts) into a CUDA graph at the key's
-first use and replays it afterwards. A call copies the token ids and
-positions into static input buffers, replays, and reads every output (the
-ids, with `k` also the chosen logprobs and the top-k, and a flag that
-every logit was finite) in one device-to-host copy. The KV cache is
-updated in place, as the eager loop updates it. All graphs share one
-memory pool, since they never run at once; the chunk's outputs are copied
-into buffers allocated outside it, so no graph's live data sits in the
-pool. Each stochastic graph registers the engine's generator, so every
-replay draws new numbers and `manual_seed` at the start of `generate`
-decides them.
+step on Llama-2-7B). `ChunkGraphs` captures each chunk once per key into
+a CUDA graph at the key's first use and replays it afterwards:
+
+- a decode chunk per (steps, span, sampler, logprobs k, MMOpts). A call
+  copies the token ids and positions into static input buffers, replays,
+  and reads every output (the ids, with `k` also the chosen logprobs and
+  the top-k, and a flag that every logit was finite) in one
+  device-to-host copy. Each stochastic graph registers the engine's
+  generator, so every replay draws new numbers and `manual_seed` at the
+  start of `generate` decides them.
+- a prefill chunk per (t, span, MMOpts), t its padded width. The slot,
+  the start position, the index of the row whose logits are kept and the
+  t token ids go into one static input buffer; the graph runs the
+  engine's forward step, which addresses the slot's cache rows through it
+  (`forward`'s `rows`), gathers that logits row into a static output and
+  ANDs a flag that every logit was finite. Nothing is read back: the
+  caller's first-token sample is the prompt's one sync.
+
+Inputs from the host go through one pinned staging buffer per input
+buffer and one copy that waits on an event, never a pageable copy. The KV
+cache is updated in place, as the eager chunks update it. All graphs
+share one memory pool, since they never run at once; the chunks' outputs
+are copied into buffers allocated outside it, so no graph's live data
+sits in the pool.
 
 Before a capture the chunk runs once eagerly on a side stream (as torch
-requires), drawing from a scratch generator so that the engine's draws do
-not depend on which keys were captured before. That run writes the same
-cache rows the replay right after it rewrites. The wrappers' launch
-counters advance in that run and in the capture, never in a replay.
+requires), a decode chunk drawing from a scratch generator so that the
+engine's draws do not depend on which keys were captured before. That
+run writes the same cache rows the replay right after it rewrites. The
+wrappers' launch counters advance in that run and in the capture, never
+in a replay.
 
 On the CPU nothing is captured: the same object runs the same chunk on
 the same static buffers, so the buffer logic (copy in, the cache updated
 in place, copy out) runs in the CPU tests. On cuda a failed capture or
-replay raises; nothing falls back to the eager loop.
+replay raises; nothing falls back to an eager chunk.
 
-With the LLM's tracer on, a call records `copy_in`, `capture` (with its
-key's steps and span), `replay` (on the CPU: the eager run of the chunk)
-and `read` spans, all outside the captured code.
+With the LLM's tracer on, a decode call records `copy_in`, `capture`
+(with its key's steps and span), `replay` (on the CPU: the eager run of
+the chunk) and `read` spans; a prefill chunk records only its `capture`
+(with its key's t and span), inside the engine's `prefill_chunk` span.
+All of them lie outside the captured code.
 """
 
 from __future__ import annotations
@@ -90,31 +106,53 @@ class _Bucket:
         return Chunk(ids, lp, tid, tlp, bool(host[n]))
 
 
-class DecodeGraphs:
-    """The decode chunks of one `LLM`: static inputs, a bucket per key, a
-    CUDA graph per bucket on cuda. It holds no reference to the LLM (the
-    caller passes it), so the LLM's memory is freed with it."""
+class ChunkGraphs:
+    """The decode and prefill chunks of one `LLM`: static inputs, a bucket
+    per decode key, a graph per key on cuda. It holds no reference to the
+    LLM (the caller passes it), so the LLM's memory is freed with it."""
 
-    def __init__(self, device, batch: int):
+    def __init__(self, device, batch: int, vocab: int, width: int):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
-        # row 0 token ids, row 1 positions
+        # decode: row 0 token ids, row 1 positions
         self.inputs = torch.zeros((2, batch), dtype=torch.int32,
                                   device=self.device)
+        # prefill: slot, start, the kept row's index, then up to `width`
+        # token ids; the kept logits row; False once a prefill chunk's
+        # logits were not all finite (the caller resets it)
+        self.prefill_in = torch.zeros(3 + width, dtype=torch.int32,
+                                      device=self.device)
+        self.prefill_out = torch.zeros(vocab, dtype=torch.float32,
+                                       device=self.device)
+        self.prefill_finite = torch.ones((), dtype=torch.bool,
+                                         device=self.device)
         self.buckets: dict = {}
+        self.prefill_graphs: dict = {}
         self.capture_s = 0.0       # warm-up, capture and instantiation
+        # prefill chunks whose key an earlier chunk captured (on the CPU:
+        # ran), so that a capture inside a window shows
+        self.prefill_replays = 0
         self.on_card = self.device.type == "cuda"
+        # pinned staging buffers of `inputs` and `prefill_in` (on the card)
+        self._inputs_host = self._prefill_host = None
         if self.on_card:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
             self._warm_gen = torch.Generator(device=self.device)
-            self._staging = torch.zeros((2, batch),
-                                        dtype=torch.int32).pin_memory()
+            self._inputs_host = torch.zeros_like(self.inputs,
+                                                 device="cpu").pin_memory()
+            self._prefill_host = torch.zeros_like(self.prefill_in,
+                                                  device="cpu").pin_memory()
             self._copied = torch.cuda.Event()
 
     def keys(self) -> list:
-        """(steps, span, sampler, logprobs k, MMOpts) of every bucket."""
+        """(steps, span, sampler, logprobs k, MMOpts) of every decode
+        bucket."""
         return list(self.buckets)
+
+    def prefill_keys(self) -> list:
+        """(t, span, MMOpts) of every prefill chunk run so far."""
+        return list(self.prefill_graphs)
 
     def pool_bytes(self) -> int | None:
         """Bytes the caching allocator holds for the graphs' shared pool
@@ -148,14 +186,16 @@ class DecodeGraphs:
                              "engine's generator (LLM.generator)")
         tr = llm.tracer
         with tr.span("copy_in"):
-            self._copy_in(tokens, pos)
+            self._copy_in(self.inputs, self._inputs_host, (tokens, pos))
         key = (steps, span, sampler, k, llm.opts)
         bucket = self.buckets.get(key)
         if bucket is None:
             bucket = _Bucket(self.inputs.shape[1], steps, k, self.device)
             if self.on_card:
                 with tr.span("capture", steps=steps, span=span):
-                    self._capture(bucket, llm, key, stochastic)
+                    bucket.graph = self._capture(
+                        lambda gen: self._chunk(bucket, llm, key, gen),
+                        stochastic)
             self.buckets[key] = bucket
         with tr.span("replay"):
             if bucket.graph is not None:
@@ -164,25 +204,63 @@ class DecodeGraphs:
                 self._chunk(bucket, llm, key, generator)
         return bucket
 
-    def _copy_in(self, tokens, pos) -> None:
-        tok, p = torch.as_tensor(tokens), torch.as_tensor(pos)
-        if self.on_card and tok.device.type == "cpu":
-            # host arrays: one copy from pinned memory, once the last one
-            # has left it (an event wait, not counted in llama.host_syncs:
-            # the last chunk's read has already waited for that copy)
-            self._copied.synchronize()
-            self._staging[0].copy_(tok)
-            self._staging[1].copy_(p)
-            self.inputs.copy_(self._staging, non_blocking=True)
-            self._copied.record()
+    def prefill(self, tracer, key: tuple, step, toks: np.ndarray,
+                slot: int, start: int, last_idx: int) -> torch.Tensor:
+        """One prefill chunk: the (1, t) token ids `toks` into cache slot
+        `slot` at start..start+t-1, by the replay of the key's graph
+        (captured at its first use), or on the CPU the chunk run on the
+        same buffers. `key` is (t, span, MMOpts); `step(tokens (1, t),
+        pos (1,), rows (1,))` is the model's forward over the slot's cache
+        rows, returning the logits (1, t, vocab). Returns the static
+        logits row of chunk token `last_idx`, valid until the next chunk;
+        reads nothing back."""
+        t, span = key[:2]
+        if t > self.prefill_in.numel() - 3:
+            raise ValueError(f"a {t}-token prefill chunk exceeds the static "
+                             f"buffer's {self.prefill_in.numel() - 3}")
+        self._copy_in(self.prefill_in, self._prefill_host,
+                      (np.array([slot, start, last_idx]), toks))
+        if key in self.prefill_graphs:
+            self.prefill_replays += 1
         else:
-            self.inputs[0].copy_(tok)
-            self.inputs[1].copy_(p)
+            graph = None
+            if self.on_card:
+                with tracer.span("capture", t=t, span=span):
+                    graph = self._capture(
+                        lambda gen: self._prefill_chunk(step, t))
+            self.prefill_graphs[key] = graph
+        graph = self.prefill_graphs[key]
+        if graph is not None:
+            graph.replay()
+        else:
+            self._prefill_chunk(step, t)
+        return self.prefill_out
+
+    def _copy_in(self, dst: torch.Tensor, staging, parts) -> None:
+        """Fill the leading elements of the static input `dst` with
+        `parts` in order (arrays or tensors). From host memory on the
+        card: into `dst`'s pinned staging buffer `staging` once the last
+        copy has left it (an event wait, not counted in llama.host_syncs:
+        the chunk's read, or the prompt's first-token read, has already
+        waited for that copy), then one asynchronous copy."""
+        parts = [torch.as_tensor(p).reshape(-1) for p in parts]
+        host = staging is not None and all(p.device.type == "cpu"
+                                           for p in parts)
+        if host:
+            self._copied.synchronize()
+        buf = (staging if host else dst).view(-1)
+        n = 0
+        for p in parts:
+            buf[n:n + p.numel()].copy_(p)
+            n += p.numel()
+        if host:
+            dst.view(-1)[:n].copy_(buf[:n], non_blocking=True)
+            self._copied.record()
 
     def _chunk(self, bucket: _Bucket, llm, key: tuple, generator) -> None:
         """The reference's scan body `steps` times on the static inputs,
-        then the outputs into the bucket: what a graph captures, and what
-        the CPU runs."""
+        then the outputs into the bucket: what a decode graph captures,
+        and what the CPU runs."""
         steps, span, sampler, k, opts = key
         toks, pos = self.inputs[0], self.inputs[1]
         ids, extras, finite = [], [], None
@@ -204,10 +282,20 @@ class DecodeGraphs:
                                    bucket.top_logprobs), zip(*extras)):
                 dst.copy_(torch.stack(parts, dim=1))
 
-    def _capture(self, bucket: _Bucket, llm, key: tuple,
-                 stochastic: bool) -> None:
-        """Warm the chunk up on the side stream, then capture it there into
-        the shared pool. Raises if the capture fails."""
+    def _prefill_chunk(self, step, t: int) -> None:
+        """`step` on the static prefill input, its kept logits row gathered
+        into the static output and its logits' finiteness ANDed into
+        `prefill_finite`: what a prefill graph captures, and what the CPU
+        runs."""
+        inp = self.prefill_in
+        logits = step(inp[3:3 + t].view(1, t), inp[1:2], inp[0:1])
+        self.prefill_out.copy_(logits[0].index_select(0, inp[2:3])[0])
+        self.prefill_finite.logical_and_(torch.isfinite(logits).all())
+
+    def _capture(self, body, stochastic: bool = False):
+        """Warm `body(generator)` up on the side stream, then capture it
+        there into the shared pool; returns the graph. Raises if the
+        capture fails."""
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(main)
@@ -215,12 +303,12 @@ class DecodeGraphs:
         if stochastic:
             graph.register_generator_state(self.generator)
         with torch.cuda.stream(self.stream):
-            self._chunk(bucket, llm, key, self._warm_gen)
+            body(self._warm_gen)
             graph.capture_begin(pool=self.pool)
             try:
-                self._chunk(bucket, llm, key, self.generator)
+                body(self.generator)
             finally:
                 graph.capture_end()
         main.wait_stream(self.stream)
-        bucket.graph = graph
         self.capture_s += time.perf_counter() - t0
+        return graph

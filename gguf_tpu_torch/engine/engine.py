@@ -4,13 +4,14 @@ Counterpart of the single-device decoder branch of
 `gguf_tpu/engine/engine.py:LLM` (`__init__`, `generate` with its
 `decode_chunk`, `stop_at_eos`, `stop_ids`, `on_tokens` and `logprobs`
 arguments, `_prefill_chunks`, `_bucket`, `_span_bucket`, and the jitted
-`_decode` scan as `_decode`: one CUDA graph replay per chunk on the card,
-`decode_graph.DecodeGraphs`). A fixed pool of `max_batch` slots shares
-one KV cache; new requests take free slots as soon as they open, and
-sequences at different depths decode together in one forward step.
-Prefill runs per request in power-of-two padded chunks, eagerly; the
-cache is updated in place. `LLM.tracer` (`trace.py`), off by default,
-records the spans of each call.
+`_decode` scan as `_decode`; on the card each decode chunk and each
+prefill chunk is one CUDA graph replay, `decode_graph.ChunkGraphs`). A
+fixed pool of `max_batch` slots shares one KV cache; new requests take
+free slots as soon as they open, and sequences at different depths
+decode together in one forward step. Prefill runs per request in
+power-of-two padded chunks with no host read inside a chunk; the cache
+is updated in place. `LLM.tracer` (`trace.py`), off by default, records
+the spans of each call.
 
 Prompts are token-id lists (the tokenizers are not ported yet). Not
 ported yet either: speculative decoding, the prefix cache, chat sessions,
@@ -30,7 +31,7 @@ from ..gguf import GGUFReader
 from ..models import llama
 from ..models.llama import MMOpts, forward, fuse_llama_params, init_kv_cache
 from ..models.loader import load_llama
-from .decode_graph import Chunk, DecodeGraphs
+from .decode_graph import Chunk, ChunkGraphs
 from .sampler import SamplerConfig, logprobs as chosen_logprobs, sample
 from .trace import Tracer
 
@@ -44,10 +45,12 @@ class GenerationResult:
     # batch-level stats shared by every result of one generate() call:
     # wall_s is end to end; prefill_s covers each request's prefill and
     # first token, decode_s / decode_tokens the decode chunks alone (host
-    # clock, each ends in a device sync), capture_s the part of decode_s
-    # that captured CUDA graphs; prefill_tokens counts the prompt tokens,
+    # clock, each ends in a device sync), capture_s the part of both that
+    # captured CUDA graphs; prefill_tokens counts the prompt tokens,
     # prefill_widths the prefill chunks by padded width ({t: chunks}),
-    # prefill_syncs the host-device syncs inside prefill_s;
+    # prefill_replays the chunks that replayed a graph an earlier chunk
+    # captured (on the CPU: ran on the static buffers of a key run
+    # before), prefill_syncs the host-device syncs inside prefill_s;
     # decode_finite is False if any decode step's logits were not finite
     stats: dict = field(default_factory=dict)
     # when generate(logprobs=k): one {"logprob": f, "top": [(id, lp), ...]}
@@ -78,7 +81,8 @@ class LLM:
         self.opts = opts
         self.cache = init_kv_cache(self.cfg, max_batch, self.max_seq,
                                    self.device)
-        self.graphs = DecodeGraphs(self.device, max_batch)
+        self.graphs = ChunkGraphs(self.device, max_batch,
+                                  self.cfg.vocab_size, PREFILL_CHUNK)
         self.generator = self.graphs.generator   # every draw of generate
         self.tracer = Tracer()
 
@@ -101,8 +105,23 @@ class LLM:
 
     def _prefill(self, toks: np.ndarray, slot: int, start: int,
                  last_idx: int, span) -> torch.Tensor:
-        """One prompt chunk into cache slot `slot` at start..start+t-1;
-        returns the logits row of chunk token `last_idx`."""
+        """One prompt chunk (1, t) into cache slot `slot` at
+        start..start+t-1: on the card one CUDA graph replay per (t, span)
+        key, on the CPU the same chunk on the same static buffers. Returns
+        the logits row of chunk token `last_idx` (a static buffer, valid
+        until the next chunk)."""
+        def step(tokens, pos, rows):
+            return forward(self.params, self.cfg, tokens, pos, self.cache,
+                           self.opts, span=span, rows=rows)[0]
+
+        return self.graphs.prefill(self.tracer, (toks.shape[-1], span,
+                                                 self.opts),
+                                   step, toks, slot, start, last_idx)
+
+    def _prefill_eager(self, toks: np.ndarray, slot: int, start: int,
+                       last_idx: int, span) -> torch.Tensor:
+        """`_prefill` as eager launches over views of the slot's cache
+        rows, each input a pageable copy: what the graphs are held to."""
         cache_1 = [{name: c[slot:slot + 1] for name, c in layer.items()}
                    for layer in self.cache]      # views: writes land in place
         # two copies from pageable host memory: each waits on the card
@@ -117,7 +136,8 @@ class LLM:
                         widths: dict | None = None) -> torch.Tensor:
         """Prefill `ids` at start.. in PREFILL_CHUNK pieces with power-of-two
         tail buckets, halved until the padded call fits the cache;
-        `widths`, where given, counts the chunks by padded width."""
+        `widths`, where given, counts the chunks by padded width. Returns
+        the last prompt token's logits row (the caller's own copy)."""
         n = len(ids)
         if start + n >= self.max_seq:
             raise ValueError(f"prompt of {n} tokens at {start} does not fit "
@@ -140,7 +160,7 @@ class LLM:
                 widths[tp] = widths.get(tp, 0) + 1
             off += take
             if off >= n:
-                return logits
+                return logits.clone()
 
     def _decode(self, tokens, pos, sampler: SamplerConfig, steps: int, span,
                 generator, logprobs: int = 0) -> Chunk:
@@ -235,6 +255,7 @@ class LLM:
                   "prefill_tokens": 0, "prefill_widths": {},
                   "prefill_syncs": 0}
         capture_s = self.graphs.capture_s
+        replays = self.graphs.prefill_replays
 
         def maybe_finish(s, tok):
             rid = slots[s]
@@ -343,6 +364,7 @@ class LLM:
         stats = {"wall_s": (time.perf_counter_ns() - t_start) / 1e9,
                  "new_tokens": sum(len(r.token_ids) for r in out),
                  "capture_s": self.graphs.capture_s - capture_s,
+                 "prefill_replays": self.graphs.prefill_replays - replays,
                  "prefill_s": prefill_ns / 1e9, "decode_s": decode_ns / 1e9,
                  **timing}
         for r in out:

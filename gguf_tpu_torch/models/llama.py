@@ -11,13 +11,15 @@ as f32, the t > 16 prefill arm attends in f32, and logits are bf16 then
 f32.
 
 PyTorch runs eagerly and the port updates the KV cache IN PLACE:
-`forward` returns the same cache list it was given.
+`forward` returns the same cache list it was given. Nothing in `forward`
+reads the device from the host, so a CUDA graph captures it whole; with
+`rows` it addresses each sequence's cache row through a device tensor,
+so one graph serves every slot.
 
-`host_syncs` counts the port's host-device syncs, by site: the prefill
-arm's `pos.tolist()` once per layer here, and the engine's host copies
-and reads, each of which adds to it where it makes one. On the card each
-count is a sync that torch's sync debug mode reports; the CPU counts the
-same sites. The engine's spans record its change over each prefill chunk.
+`host_syncs` counts the port's host-device syncs, by site: the engine's
+host copies and reads, each of which adds to it where it makes one. On
+the card each count is a sync that torch's sync debug mode reports; the
+CPU counts the same sites.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import MMQ
-from ..ops.attention import (PALLAS_ATTN_MAX_ELEMS, TILE,
+from ..ops.attention import (PALLAS_ATTN_MAX_ELEMS, TILE, cache_rows,
                              decode_attention_update, kv_cache_insert,
                              quantize_kv)
 from ..quant.layouts import QuantWeight, concat_m
@@ -145,21 +147,28 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int | None,
 
 
 def _cache_update(cache_l: dict, new_k: torch.Tensor, new_v: torch.Tensor,
-                  pos: torch.Tensor) -> dict:
+                  pos: torch.Tensor, rows: torch.Tensor | None = None) -> dict:
     """Write T new rows per sequence at pos (the long-prefill arm, T > 16),
-    in place. The start clamps to [0, S - T] like the reference's
-    dynamic_update_slice; callers keep pos + T <= S."""
-    global host_syncs
+    in place, into cache batch row rows[b] (row b without `rows`): one
+    scatter per tensor at flat indices computed on the device. The start
+    clamps to [0, S - T] like the reference's dynamic_update_slice;
+    callers keep pos + T <= S."""
     qk, sk = quantize_kv(new_k)
     qv, sv = quantize_kv(new_v)
-    s, t = cache_l["k"].shape[2], new_k.shape[2]
-    host_syncs += 1
-    for b, p in enumerate(pos.tolist()):
-        p = min(max(int(p), 0), s - t)
-        cache_l["k"][b, :, p:p + t] = qk[b]
-        cache_l["v"][b, :, p:p + t] = qv[b]
-        cache_l["k_scale"][b, :, p:p + t] = sk[b]
-        cache_l["v_scale"][b, :, p:p + t] = sv[b]
+    b, kvh, t, hd = new_k.shape
+    s = cache_l["k"].shape[2]
+    dev = pos.device
+    if rows is None:
+        rows = torch.arange(b, device=dev)
+    start = pos.long().clamp(0, s - t)
+    at = ((rows.long()[:, None, None] * kvh
+           + torch.arange(kvh, device=dev)[None, :, None]) * s
+          + start[:, None, None]
+          + torch.arange(t, device=dev)[None, None, :]).reshape(-1)
+    cache_l["k"].view(-1, hd).index_copy_(0, at, qk.reshape(-1, hd))
+    cache_l["v"].view(-1, hd).index_copy_(0, at, qv.reshape(-1, hd))
+    cache_l["k_scale"].view(-1).index_copy_(0, at, sk.reshape(-1))
+    cache_l["v_scale"].view(-1).index_copy_(0, at, sv.reshape(-1))
     return cache_l
 
 
@@ -167,16 +176,18 @@ def _cache_update(cache_l: dict, new_k: torch.Tensor, new_v: torch.Tensor,
 
 
 def attention(layer, x, cfg: LlamaConfig, cache_l: dict, pos, opts: MMOpts,
-              rope=None, span: int | None = None):
+              rope=None, span: int | None = None, rows=None):
     """GQA attention over the INT8 cache. x (B, T, dim); pos (B,) start
-    positions; span bounds the cache rows read (every pos + T <= span).
+    positions; span bounds the cache rows read (every pos + T <= span);
+    rows (B,) int32, where given, the cache batch row of each sequence
+    (else row b).
 
     The reference's three routes, on its conditions: within the
     single-tile envelope (KVH * span * hd <= PALLAS_ATTN_MAX_ELEMS) and
     t <= 8, cache insert + K4; past it at t = 1 with span a multiple of
     256, cache insert + K9 (tiled flash-decoding); on the card both are one
     launch at t = 1 with the insert fused in (`decode_attention_update`).
-    Otherwise the K3 insert (t <= 16) or the plain `_cache_update`, then
+    Otherwise the K3 insert (t <= 16) or the `_cache_update` scatter, then
     plain f32 attention over the span."""
     b, t, _ = x.shape
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -205,17 +216,19 @@ def attention(layer, x, cfg: LlamaConfig, cache_l: dict, pos, opts: MMOpts,
         out = decode_attention_update(
             q.transpose(1, 2), k.transpose(1, 2).float(),
             v.transpose(1, 2).float(), ck, cks, cv, cvs, pos, t=t,
-            precision=opts.precision, span=span_eff)[0]
+            precision=opts.precision, span=span_eff, rows=rows)[0]
         out = out.transpose(1, 2).reshape(b * t, h * hd)
     else:
         if t <= 16:
             kv_cache_insert(k.transpose(1, 2).float(), v.transpose(1, 2).float(),
-                            ck, cks, cv, cvs, pos)
+                            ck, cks, cv, cvs, pos, rows=rows)
         else:
-            _cache_update(cache_l, k.transpose(1, 2), v.transpose(1, 2), pos)
+            _cache_update(cache_l, k.transpose(1, 2), v.transpose(1, 2), pos,
+                          rows)
         s = span_eff
-        k_all = ck[:, :, :s].float() * cks[:, :, :s, None]
-        v_all = cv[:, :, :s].float() * cvs[:, :, :s, None]
+        ck, cks, cv, cvs = (cache_rows(c, rows, s) for c in (ck, cks, cv, cvs))
+        k_all = ck.float() * cks[..., None]
+        v_all = cv.float() * cvs[..., None]
         g = h // kvh
         qg = q.transpose(1, 2).reshape(b, kvh, g * t, hd)
         scores = qg.float() @ k_all.transpose(-1, -2)
@@ -286,10 +299,12 @@ def fuse_llama_params(params: dict) -> dict:
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
             pos: torch.Tensor, cache: list, opts: MMOpts = MMOpts(),
-            span: int | None = None):
+            span: int | None = None, rows: torch.Tensor | None = None):
     """Run T tokens through the decoder: (logits (B, T, vocab) f32, cache).
     tokens (B, T) int; pos (B,) start positions (per-slot, continuous
-    batching); span bounds the cache rows attention reads."""
+    batching); span bounds the cache rows attention reads; rows (B,)
+    int32 on the device, where given, the cache batch row each sequence
+    reads and writes (a cache of any batch), else row b."""
     x = embed(params["token_embd"], tokens).to(torch.bfloat16)
     tok_pos = pos[:, None] + torch.arange(tokens.shape[1],
                                           device=pos.device)[None, :]
@@ -297,7 +312,7 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         attn_out, cache[i] = attention(layer, h, cfg, cache[i], pos, opts,
-                                       rope=rope, span=span)
+                                       rope=rope, span=span, rows=rows)
         x = x + attn_out
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + mlp(layer, h, opts, cfg.act_fn)

@@ -17,7 +17,11 @@ Layouts match the reference: q (B, H, t, hd); new K/V rows (B, KVH, t, hd)
 float32; the cache k/v (B, KVH, S, hd) int8 with per-row float32 scales
 (B, KVH, S); pos (B,) int32, the position of each sequence's first new
 token. The cache is updated IN PLACE (the JAX package aliases the same
-buffers); the functions return the cache tensors they were given.
+buffers); the functions return the cache tensors they were given. K3 and
+K4 (and their plain versions) take an optional `rows` (B,) int32 on the
+cache's device: sequence b then reads and writes cache batch row rows[b]
+of a cache of any batch, the row read on the device (a prefill chunk's
+CUDA graph addresses its slot so); without it, row b.
 
 Quantization is per (token, head) row and bit-identical to the reference
 as XLA compiles it (`gguf_tpu/models/llama.py:_quantize_kv` and the Pallas
@@ -59,8 +63,8 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 RECIP_127 = float(torch.tensor(1 / 127, dtype=torch.float32))
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
-    "kv_cache_insert_launch": [_VP] * 7 + [_I] * 5 + [_VP],
-    "decode_attention_launch": [_VP] * 9 + [_I] * 7 + [_F, _F] + [_I] * 4
+    "kv_cache_insert_launch": [_VP] * 8 + [_I] * 5 + [_VP],
+    "decode_attention_launch": [_VP] * 10 + [_I] * 7 + [_F, _F] + [_I] * 4
     + [_VP],
 }
 _SIG_TILED = {
@@ -105,22 +109,41 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def _check_cache(k, k_scale, v, v_scale, pos):
-    b, kvh, s, hd = k.shape
+def _check_cache(k, k_scale, v, v_scale, pos, rows=None):
+    """(B, KVH, S, hd): B the sequences (pos's), the cache's batch unless
+    `rows` picks their cache rows."""
+    bc, kvh, s, hd = k.shape
+    b = bc if rows is None else rows.shape[0]
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError("the KV cache is int8")
-    if v.shape != k.shape or k_scale.shape != (b, kvh, s) \
-            or v_scale.shape != (b, kvh, s):
+    if v.shape != k.shape or k_scale.shape != (bc, kvh, s) \
+            or v_scale.shape != (bc, kvh, s):
         raise ValueError("cache and scale shapes disagree")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("cache scales are float32")
     if pos.shape != (b,):
         raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
+    if rows is not None and (rows.ndim != 1 or rows.dtype != torch.int32):
+        raise ValueError("rows must be (B,) int32")
     for t in (k, k_scale, v, v_scale):
         if not t.is_contiguous():
             raise ValueError("the KV cache must be contiguous")
-    _check_device(k, k_scale, v, v_scale, pos)
+    _check_device(k, k_scale, v, v_scale, pos,
+                  *(() if rows is None else (rows,)))
     return b, kvh, s, hd
+
+
+def _rows_ptr(rows):
+    """The row index's device pointer, or NULL (sequence b at row b)."""
+    return None if rows is None else build.ptr(rows)
+
+
+def cache_rows(c, rows, span: int):
+    """The first `span` positions of each sequence's cache row of the
+    cache tensor `c` (B, KVH, S, ...): a view without `rows`, else a
+    gather of rows[b] on the device."""
+    c = c[:, :, :span]
+    return c if rows is None else c.index_select(0, rows)
 
 
 def _check_device(ref, *tensors):
@@ -137,45 +160,57 @@ def _check_new(new, b, kvh, t, hd):
 # ------------------------------------------------------------- K3: insert ---
 
 
-def kv_cache_insert_plain(k_new, v_new, k, k_scale, v, v_scale, pos):
+def kv_cache_insert_plain(k_new, v_new, k, k_scale, v, v_scale, pos,
+                          rows=None):
     """Plain version of K3: quantize and write rows pos..pos+t-1 per
-    sequence, skipping rows outside [0, S)."""
-    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
+    sequence (into cache row rows[b] where given), skipping rows outside
+    [0, S)."""
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos, rows)
     t = k_new.shape[2]
     qk, sk = quantize_kv(k_new.float())
     qv, sv = quantize_kv(v_new.float())
-    rows = pos.to(torch.long)[:, None] + torch.arange(t, device=pos.device)
-    for bi, r in enumerate(rows.tolist()):
+    at = pos.to(torch.long)[:, None] + torch.arange(t, device=pos.device)
+    cache_rows = range(b) if rows is None else rows.tolist()
+    for bi, (bc, r) in enumerate(zip(cache_rows, at.tolist())):
         for tj, row in enumerate(r):
             if 0 <= row < s:
-                k[bi, :, row] = qk[bi, :, tj]
-                k_scale[bi, :, row] = sk[bi, :, tj]
-                v[bi, :, row] = qv[bi, :, tj]
-                v_scale[bi, :, row] = sv[bi, :, tj]
+                k[bc, :, row] = qk[bi, :, tj]
+                k_scale[bc, :, row] = sk[bi, :, tj]
+                v[bc, :, row] = qv[bi, :, tj]
+                v_scale[bc, :, row] = sv[bi, :, tj]
     return k, k_scale, v, v_scale
 
 
-def kv_cache_insert(k_new, v_new, k, k_scale, v, v_scale, pos):
+def kv_cache_insert(k_new, v_new, k, k_scale, v, v_scale, pos, rows=None):
     """Quantize t new K/V rows per sequence (scale = absmax * f32(1/127),
     codes by exact division and round half to even) and write them in
-    place at pos..pos+t-1. Returns the cache tensors."""
-    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
+    place at pos..pos+t-1 of cache row rows[b] (row b without `rows`).
+    Returns the cache tensors."""
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos, rows)
     t = k_new.shape[2]
     _check_new(k_new, b, kvh, t, hd)
     _check_new(v_new, b, kvh, t, hd)
     _check_device(k, k_new, v_new)
     if k.device.type == "cpu":
-        return kv_cache_insert_plain(k_new, v_new, k, k_scale, v, v_scale, pos)
+        return kv_cache_insert_plain(k_new, v_new, k, k_scale, v, v_scale, pos,
+                                     rows)
     if k.device.type != "cuda" or hd not in HEAD_DIMS:
         raise ValueError(f"kv_cache_insert: cuda with hd in {HEAD_DIMS}, "
                          f"got {k.device} hd={hd}")
+    return _insert_cuda(k_new, v_new, k, k_scale, v, v_scale, pos, rows)
+
+
+def _insert_cuda(k_new, v_new, k, k_scale, v, v_scale, pos, rows=None):
+    """Launch K3 on operands `kv_cache_insert` has checked."""
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos, rows)
+    t = k_new.shape[2]
     kn = k_new.float().contiguous()
     vn = v_new.float().contiguous()
     p = pos.to(torch.int32).contiguous()
     err = _lib().kv_cache_insert_launch(
         build.ptr(kn), build.ptr(vn), build.ptr(k), build.ptr(k_scale),
-        build.ptr(v), build.ptr(v_scale), build.ptr(p), b, kvh, t, s, hd,
-        build.stream_ptr())
+        build.ptr(v), build.ptr(v_scale), build.ptr(p), _rows_ptr(rows), b,
+        kvh, t, s, hd, build.stream_ptr())
     build.check(err, "kv_cache_insert")
     kv_cache_insert.launches += 1
     return k, k_scale, v, v_scale
@@ -189,7 +224,7 @@ kv_cache_insert.launches = 0
 
 def decode_attention_plain(q, k, k_scale, v, v_scale, pos, *, t: int,
                            precision: str = "fast", span: int | None = None,
-                           window: int = 0, softcap: float = 0.0):
+                           window: int = 0, softcap: float = 0.0, rows=None):
     """Plain version of K4 (read-only): the reference kernel's math —
     scores (q·k)·(k_scale/√hd), optional softcap, causal (and window)
     mask, f32 softmax, then (p·v_scale) rounded to the operand type
@@ -198,6 +233,8 @@ def decode_attention_plain(q, k, k_scale, v, v_scale, pos, *, t: int,
     kvh, s = k.shape[1], k.shape[2]
     g = h // kvh
     span = s if span is None else min(span, s)
+    k, k_scale, v, v_scale = (cache_rows(c, rows, span)
+                              for c in (k, k_scale, v, v_scale))
     dt = torch.bfloat16 if precision == "fast" else torch.float32
     qr = q.reshape(b, kvh, g * t, hd).to(dt).float()
     scores = qr @ k[:, :, :span].float().transpose(-1, -2)
@@ -252,10 +289,10 @@ def k4_plan(b: int, kvh: int, g: int, t: int, span: int, hd: int,
 
 
 def _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *, t,
-                 precision, span, window, softcap):
+                 precision, span, window, softcap, rows=None):
     """Launch K4; with k_new/v_new given (t = 1) the block first inserts
     its own head's new row, then attends over the updated cache."""
-    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos)
+    b, kvh, s, hd = _check_cache(k, k_scale, v, v_scale, pos, rows)
     h = q.shape[1]
     _check_device(k, q, *(() if k_new is None else (k_new, v_new)))
     if q.shape != (b, h, t, hd) or h % kvh:
@@ -280,7 +317,7 @@ def _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos, *, t,
     err = _lib().decode_attention_launch(
         build.ptr(qf), build.ptr(kn), build.ptr(vn), build.ptr(k),
         build.ptr(k_scale), build.ptr(v), build.ptr(v_scale), build.ptr(p),
-        build.ptr(out), b, kvh, h // kvh, t, s, span, hd,
+        _rows_ptr(rows), build.ptr(out), b, kvh, h // kvh, t, s, span, hd,
         1.0 / hd ** 0.5, float(softcap), int(window),
         int(precision == "fast") | (2 if insert else 0), clusters, tile,
         build.stream_ptr())
@@ -300,23 +337,27 @@ def _takes_tiled(k, t: int, span: int | None) -> bool:
 
 def decode_attention(q, k, k_scale, v, v_scale, pos, *, t: int,
                      precision: str = "fast", span: int | None = None,
-                     window: int = 0, softcap: float = 0.0):
+                     window: int = 0, softcap: float = 0.0, rows=None):
     """GQA attention of t new tokens per sequence over the first `span`
     cache rows (their K/V already inserted). Returns (B, H, t, hd) f32.
-    Single tokens past the envelope take `decode_attention_tiled`."""
+    Single tokens past the envelope take `decode_attention_tiled`, which
+    takes no `rows`."""
     if _takes_tiled(k, t, span):
+        if rows is not None:
+            raise ValueError("decode_attention_tiled takes no cache rows")
         return decode_attention_tiled(q, k, k_scale, v, v_scale, pos,
                                       precision=precision, span=span,
                                       window=window, softcap=softcap)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, k_scale, v, v_scale, pos, t=t,
                                       precision=precision, span=span,
-                                      window=window, softcap=softcap)
+                                      window=window, softcap=softcap,
+                                      rows=rows)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
     return _attend_cuda(q, None, None, k, k_scale, v, v_scale, pos, t=t,
                         precision=precision, span=span, window=window,
-                        softcap=softcap)
+                        softcap=softcap, rows=rows)
 
 
 decode_attention.launches = 0
@@ -325,28 +366,32 @@ decode_attention.launches = 0
 def decode_attention_update(q, k_new, v_new, k, k_scale, v, v_scale, pos,
                             *, t: int, precision: str = "fast",
                             span: int | None = None, window: int = 0,
-                            softcap: float = 0.0):
+                            softcap: float = 0.0, rows=None):
     """Insert t new K/V rows, then attend: (out, k, k_scale, v, v_scale).
     On the card t = 1 is ONE launch with the insert fused in: K4, or K9
     past the single-tile envelope; t > 1 is K3 then K4. On the CPU the
-    plain insert, then the plain attention of the same route."""
+    plain insert, then the plain attention of the same route. `rows`, the
+    cache row of each sequence, as K3 and K4 take it."""
     if _on_card(q) and t == 1:
-        b, kvh, _, hd = k.shape
+        kvh, hd = k.shape[1], k.shape[3]
+        b = k.shape[0] if rows is None else rows.shape[0]
         _check_new(k_new, b, kvh, 1, hd)
         _check_new(v_new, b, kvh, 1, hd)
         kw = dict(precision=precision, span=span, window=window,
                   softcap=softcap)
         if _takes_tiled(k, t, span):
+            if rows is not None:
+                raise ValueError("decode_attention_tiled takes no cache rows")
             out = _tiled_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos,
                               **kw)
         else:
             out = _attend_cuda(q, k_new, v_new, k, k_scale, v, v_scale, pos,
-                               t=1, **kw)
+                               t=1, rows=rows, **kw)
         return out, k, k_scale, v, v_scale
-    kv_cache_insert(k_new, v_new, k, k_scale, v, v_scale, pos)
+    kv_cache_insert(k_new, v_new, k, k_scale, v, v_scale, pos, rows=rows)
     out = decode_attention(q, k, k_scale, v, v_scale, pos, t=t,
                            precision=precision, span=span, window=window,
-                           softcap=softcap)
+                           softcap=softcap, rows=rows)
     return out, k, k_scale, v, v_scale
 
 

@@ -256,8 +256,9 @@ def test_one_launch_with_the_plan(monkeypatch, model, t, insert):
     assert out.shape == q.shape and decode_attention.launches == before + 1
     assert [name for name, _ in lib.calls] == ["decode_attention_launch"]
     args = lib.calls[0][1]
-    assert args[9:16] == (b, kvh, g, t, s, span, hd)
-    assert args[18:] == (0, 1 | (2 if insert else 0),
+    assert args[8] is None                   # no row index: row b
+    assert args[10:17] == (b, kvh, g, t, s, span, hd)
+    assert args[19:] == (0, 1 | (2 if insert else 0),
                          *k4_plan(b, kvh, g, t, span, hd, 132), None)
 
 

@@ -27,15 +27,17 @@ from gguf_tpu_torch.models import LlamaConfig, llama, write_random_llama_gguf
 CFG = LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4,
                   n_kv_heads=2, ffn_dim=512, max_seq_len=1024)
 # five requests over two slots (three admission sweeps): chunks of 8
-# (<= 16 tokens: the K3 insert), 32 and 64 (> 16: `_cache_update`), and a
-# 600-token prompt in two chunks (512 and a 128-token tail)
+# (<= 16 tokens: the K3 insert), 32 and 64 (> 16: `_cache_update`'s
+# scatter), and a 600-token prompt in two chunks (512 and a 128-token
+# tail)
 PROMPT_LENS = (3, 20, 12, 600, 40)
 NEW = 9          # 8 decoded tokens a request: two whole 4-step chunks
 PARENT = {"admit": "generate", "prefill": "admit",
           "prefill_chunk": "prefill", "decode_chunk": "generate",
-          "copy_in": "decode_chunk", "capture": "decode_chunk",
-          "replay": "decode_chunk", "read": "decode_chunk",
-          "emit": "generate", "flush": "generate"}
+          "copy_in": "decode_chunk", "replay": "decode_chunk",
+          "read": "decode_chunk", "emit": "generate", "flush": "generate"}
+# a capture (on the card only) sits in the chunk whose key is new
+CAPTURE_PARENTS = ("decode_chunk", "prefill_chunk")
 
 
 def _prompts():
@@ -137,7 +139,8 @@ def test_span_tree(traced):
         if s.parent is None:
             continue
         p = by_id[s.parent]
-        assert p.name == PARENT[s.name], (s, p)
+        assert p.name in (CAPTURE_PARENTS if s.name == "capture"
+                          else (PARENT[s.name],)), (s, p)
         assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns, (s, p)
     names = Counter(s.name for s in spans)
     assert names["prefill"] == len(res) == len(PROMPT_LENS)
@@ -222,18 +225,21 @@ def test_decode_chunk_counts(traced):
 
 @pytest.mark.parametrize("logprobs", [0, 2])
 def test_host_syncs(llm, logprobs):
-    """A chunk wider than 16 tokens syncs once per layer (`pos.tolist()`
-    in `_cache_update`) besides its two host copies; a narrower one only
-    copies; each prefill adds the first token's read (and the logprobs'
-    three), each decode chunk its read; `stats["prefill_syncs"]` counts
-    the prefills' and the counter's change over the call adds the decode
-    chunks'."""
+    """A prefill chunk of any width syncs nothing (its inputs go through
+    the static buffers, its cache writes scatter at a device position);
+    each prefill syncs once, the first token's read (and the logprobs'
+    three), each decode chunk once, its read; `stats["prefill_syncs"]`
+    counts the prefills' and the counter's change over the call adds the
+    decode chunks'. Every chunk of a key run before counts in
+    `prefill_replays`."""
     before = llama.host_syncs
+    keys = len(llm.graphs.prefill_keys())
     res, spans, _ = _call(llm, True, stop_at_eos=False, logprobs=logprobs)
-    per_chunk = sum(2 + (CFG.n_layers if t > 16 else 0)
-                    for n in PROMPT_LENS for t in _widths(n, llm.max_seq))
-    want = per_chunk + len(PROMPT_LENS) * (1 + (3 if logprobs else 0))
+    want = len(PROMPT_LENS) * (1 + (3 if logprobs else 0))
     assert res[0].stats["prefill_syncs"] == want
+    assert res[0].stats["prefill_replays"] == sum(
+        len(_widths(n, llm.max_seq)) for n in PROMPT_LENS) - (
+        len(llm.graphs.prefill_keys()) - keys)
     chunks = sum(s.name == "decode_chunk" for s in spans)
     assert llama.host_syncs - before == want + chunks
 
@@ -277,12 +283,13 @@ def test_tracer_nesting_and_errors():
 @pytest.mark.card
 def test_sync_count_matches_torch_on_the_card(checkpoint):
     """On the card, under `torch.cuda.set_sync_debug_mode("warn")`: the
-    change of `llama.host_syncs` over a 64-token prefill chunk, over a
-    decode chunk that captures its graph and over one that replays it,
-    and over a whole traced `generate` call, equals the syncs torch
-    reports. One `capture`
-    span per new graph key, with its steps and span; the tokens with the
-    tracer on equal those with it off (the replays are bit-equal)."""
+    change of `llama.host_syncs` over a replayed 64-token prefill chunk
+    (0), over a decode chunk that captures its graph and over one that
+    replays it (1, the read), and over a whole traced `generate` call,
+    equals the syncs torch reports. One `capture` span per new graph key,
+    with its steps and span (decode) or t and span (prefill); the tokens
+    with the tracer on equal those with it off (the replays are
+    bit-equal)."""
     if not torch.cuda.is_available():
         pytest.skip("counts the syncs torch reports on a CUDA device")
     llm = LLM(checkpoint, max_batch=2, max_seq=1024, device="cuda")
@@ -291,10 +298,15 @@ def test_sync_count_matches_torch_on_the_card(checkpoint):
     on = llm.generate(prompts, max_new_tokens=NEW, decode_chunk=4,
                       stop_at_eos=False)
     spans = llm.tracer.drain()
-    captures = sorted((s.attrs["steps"], s.attrs["span"]) for s in spans
-                      if s.name == "capture")
-    assert captures == sorted(k[:2] for k in llm.graphs.keys())
-    assert len(captures) > 0
+    by_id = {s.id: s for s in spans}
+    captures = {kind: sorted((s.attrs[first], s.attrs["span"])
+                             for s in spans if s.name == "capture"
+                             and by_id[s.parent].name == f"{kind}_chunk")
+                for kind, first in (("decode", "steps"), ("prefill", "t"))}
+    assert captures["decode"] == sorted(k[:2] for k in llm.graphs.keys())
+    assert captures["prefill"] == sorted(
+        k[:2] for k in llm.graphs.prefill_keys())
+    assert captures["decode"] and captures["prefill"]
     llm.tracer.enabled = False
     off = llm.generate(prompts, max_new_tokens=NEW, decode_chunk=4,
                        stop_at_eos=False)
@@ -316,10 +328,13 @@ def test_sync_count_matches_torch_on_the_card(checkpoint):
 
     llm.tracer.enabled = True
     ids = prompts[3][:64]
+    llm._prefill_chunks(ids, 1)                   # captures (64, 128)
+    replays = llm.graphs.prefill_replays
     got, counted = reported(lambda: llm._prefill_chunks(ids, 0))
     chunk = [s for s in llm.tracer.drain() if s.name == "prefill_chunk"]
-    assert [s.attrs["t"] for s in chunk] == [64]
-    assert got == counted == CFG.n_layers + 2
+    assert [s.attrs["t"] for s in chunk] == [64, 64]
+    assert llm.graphs.prefill_replays == replays + 1
+    assert got == counted == 0
     tok, pos = [5, 6], [64, 1024]             # slot 1 inactive
     for steps in (8, 8):                      # a new key, then its replay
         n_keys = len(llm.graphs.keys())
