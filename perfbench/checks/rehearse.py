@@ -1,8 +1,9 @@
 """Rehearse the whole harness on the CPU at a toy size of each cell's
-configuration: 2 layers at small widths (the same head ratio, tie and
-quantization recipe), a few requests, the kernels' plain versions. Every
-step a chip run takes runs, the trace and the reference included, down
-to the result line. Run: python -m perfbench.checks.rehearse [cell ...]
+configuration (its architecture's `toy`: for llama, 2 layers at small
+widths, the same head ratio, tie and quantization recipe), a few
+requests, the kernels' plain versions. Every step a chip run takes runs,
+the trace and the reference included, down to the result line.
+Run: python -m perfbench.checks.rehearse [cell ...]
 """
 
 from __future__ import annotations
@@ -13,15 +14,12 @@ import sys
 import time
 
 from perfbench.harness import load_cell, print_result, run_cell
+from perfbench.model import arch
 
 
 def toy(cell):
     """The cell at a size the CPU runs in seconds."""
-    m = cell.model
-    heads = 4
-    m = dataclasses.replace(m, vocab=512, dim=256, layers=2, heads=heads,
-                            kv_heads=heads * m.kv_heads // m.heads, ffn=512,
-                            max_seq=256, max_batch=2)
+    m = arch(cell.model).toy(cell.model)
     tr = dataclasses.replace(cell.traffic, requests_per_call=4,
                              prompt_tokens=(8, 40), max_new_tokens=24)
     return dataclasses.replace(cell, model=m, traffic=tr, check_requests=4)

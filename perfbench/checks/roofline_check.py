@@ -1,5 +1,5 @@
-"""Pin the two configurations' per-step quantized bytes and per-token
-FLOPs against numbers worked out by hand.  Run: python -m
+"""Pin the two configurations' per-step quantized bytes (at 16 live
+slots) and per-token FLOPs against numbers worked out by hand.  Run: python -m
 perfbench.checks.roofline_check (CPU only, no torch device needed).
 
 Mistral-7B-v0.2 Q4_K_M (32 layers, dim 4096, 32/8 heads, hd 128, ffn
@@ -48,7 +48,7 @@ WANT = {
 
 def got(m: Model) -> dict:
     return {"matmul_params": R.matmul_params(m),
-            "step_weight_bytes": R.step_weight_bytes(m),
+            "step_weight_bytes": R.step_weight_bytes(m, 16),
             "kv_row_bytes": R.kv_row_bytes(m),
             "attn_flops_per_row": R.attn_flops_per_row(m),
             "decode_flops(1 token, 100 rows)": R.decode_flops(m, 1, 100),

@@ -1,10 +1,17 @@
-"""Check the seeded checkpoint on the CPU at 2 layers of each
-configuration's published widths: the file loads through the port's
-`load_llama`; every matrix's dequantized weights (by the reference's own
-dequantizers, which must agree with the port's `dequantize`) have the
-recipe's spread, mean about 0 and std 0.5/sqrt(hidden_size) within 3%;
-the same seed makes the same bytes twice; and the first logits of the
-port's forward are finite and near the reference's.
+"""Check the seeded checkpoint on the CPU.
+
+Every block format the recipes use (`perfbench.model.BLOCK`: Q2_K, Q3_K,
+Q4_K, Q5_K, Q6_K, Q8_0), drawn as `make_bytes` draws it for a 256 x 4096
+matrix: the reference's own dequantizer agrees with the port's, and the
+weights have mean about 0 and std 0.5/sqrt(4096) within 3%.
+
+Each configuration at 2 layers of its published widths, and Mistral's in
+the `q2_k` recipe too: the file loads through the port's `load_llama`;
+every matrix's dequantized weights (by the reference's own dequantizers,
+which must agree with the port's `dequantize`) have the recipe's spread,
+mean about 0 and std 0.5/sqrt(hidden_size) within 3%; the norms are
+ones; the same seed makes the same bytes twice; and the first logits of
+the port's forward are finite and near the reference's.
 Run: python -m perfbench.checks.weights_check
 """
 
@@ -16,19 +23,40 @@ import os
 
 import torch
 
-from perfbench.model import HERE, Model
+from perfbench.model import BLOCK, F32, HERE, Model, nbytes
 from perfbench.references import llama as ref
-from perfbench.weights import Checkpoint, make_bytes, target_std, views
+from perfbench.weights import (Checkpoint, make_bytes, seeded_blocks,
+                               target_std, views)
 
 SEED = 2**31 + 7
 
 
-def check(name: str, path: str) -> None:
+def check_block(fmt: str) -> None:
+    """One format's seeded blocks: the reference's dequantizer against the
+    port's, and the spread."""
+    from gguf_tpu_torch.quant.layouts import QuantWeight
+
+    shape, std = (256, 4096), 0.5 / 4096 ** 0.5
+    gen = torch.Generator().manual_seed(SEED)
+    raw = seeded_blocks(fmt, nbytes(fmt, shape), std, gen, "cpu").view(
+        shape[0], -1)
+    x = ref.dequant((fmt, shape, raw))
+    y = QuantWeight.from_blocks(fmt, raw.numpy(), shape, "cpu").dequantize()
+    err = float((x - y).abs().max() / x.abs().max())
+    mean, got = float(x.mean()), float(x.std())
+    print(f"{fmt} {shape}: std {got:.6g} (recipe {std:.6g}), mean "
+          f"{mean:.3g}, reference vs port dequantize {err:.3g}")
+    assert abs(got / std - 1) < 0.03 and abs(mean) < 0.03 * std, fmt
+    assert err < 1e-6, (fmt, err)
+
+
+def check(m: Model) -> None:
     from gguf_tpu_torch.models.llama import (forward, fuse_llama_params,
                                              init_kv_cache)
     from gguf_tpu_torch.models.loader import load_llama
 
-    m = dataclasses.replace(Model.from_file(name, path), layers=2, max_seq=64)
+    name = f"{m.name} ({m.recipe})"
+    m = dataclasses.replace(m, layers=2, max_seq=64)
     buffers = make_bytes(m, SEED, "cpu")
     again = make_bytes(m, SEED, "cpu")
     assert all(torch.equal(buffers[f], again[f]) for f in buffers), \
@@ -53,6 +81,9 @@ def check(name: str, path: str) -> None:
         for gg, pk in names.items():
             port[f"blk.{i}.{gg}.weight"] = layer[pk]
     for tname, entry in w.items():
+        if entry[0] == F32:
+            assert torch.equal(entry[2], torch.ones(entry[1])), tname
+            continue
         x = ref.dequant(entry)
         y = port[tname].dequantize()
         assert port[tname].fmt == entry[0], (tname, port[tname].fmt, entry[0])
@@ -82,10 +113,17 @@ def check(name: str, path: str) -> None:
 
 
 def main() -> None:
+    for fmt in BLOCK:
+        check_block(fmt)
     with open(os.path.join(os.path.dirname(HERE), "BENCHMARK.json")) as f:
         configs = json.load(f)["configs"]
-    for c in configs:
-        check(c["name"], os.path.join(os.path.dirname(HERE), c["file"]))
+    models = [Model.from_file(c["name"], os.path.join(os.path.dirname(HERE),
+                                                      c["file"]))
+              for c in configs]
+    for m in models:
+        check(m)
+    # the Q2_K mix at Mistral's widths: Q2_K, Q3_K, Q4_K and Q6_K matrices
+    check(dataclasses.replace(models[0], recipe="q2_k"))
     print("checkpoints OK")
 
 

@@ -2,7 +2,9 @@
 the plain reference, and the result line.
 
 Everything a cell needs is found by name: `BENCHMARK.json` names the
-cell's configuration (`perfbench/configs/<file>`) and traffic
+cell's configuration (`perfbench/configs/<file>`, whose `architecture`
+names `perfbench/archs/<name>.py` and `reference`
+`perfbench/references/<name>.py`) and traffic
 (`perfbench/traffic/<name>.json`), the metrics it reports (each read by
 `perfbench/metrics/<name>.py`), and the correctness limits and the
 size of the reference's sample sit in `perfbench/limits/<cell>.json`. The harness holds no per-cell code.
@@ -14,6 +16,7 @@ import gc
 import importlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -210,6 +213,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     buffers = make_bytes(m, seed, device)
     ckpt = Checkpoint(m, buffers, os.path.join(CACHE, "checkpoint"))
     del buffers
+    if on_card:
+        torch.cuda.empty_cache()    # the drawn bytes' blocks go back
     parts["checkpoint_s"] = time.perf_counter() - t
     t = time.perf_counter()
     try:
@@ -234,6 +239,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     run = Run(m, tr, setup_s=time.perf_counter() - t_start, spans=spans)
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     log(f"set-up {run.setup_s:.3f} s ({built} kernel libraries built; "
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + ")")
 
@@ -315,7 +321,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     log(f"reference over {len(pick)} requests ({len(gaps)} served "
         f"tokens): {time.perf_counter() - t_ref:.3f} s")
     check, correct = compare(cell, gaps, failed, nonfinite)
-    weights_bytes = sum(nbytes(f, r, c) for _, f, (r, c) in tensor_plan(m))
+    weights_bytes = sum(nbytes(t.fmt, t.shape) for t in tensor_plan(m))
     result = {"correct": correct, "attempted": len(requests),
               "failed": failed, "metrics": metrics,
               "device": device_info(device, peak, run,
@@ -324,7 +330,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if run.trace is not None:
         result["breakdown"] = run.trace.breakdown()
         result["trace_cost"] = trace_cost
-    result["setup"] = {"kernels_built": built, **parts}
+    result["setup"] = {"kernels_built": built, **parts,
+                       "host_peak_bytes": host_peak}
     result["memory"] = {
         "weights_bytes": weights_bytes, "kv_rows_peak": kv_rows,
         "kv_reserved_bytes": m.max_batch * m.max_seq

@@ -1,9 +1,10 @@
-"""Plain float32 reference of a llama-architecture GGUF model, for the
-configurations whose `reference` is "llama".
+"""Plain float32 reference of a llama-architecture GGUF model with a dense
+FFN, for the configurations whose `reference` is "llama"; its
+dequantizers serve the references of other architectures too.
 
 Written from the GGUF and llama.cpp definitions, independent of the
-port: it imports nothing of `gguf_tpu_torch` and takes only the block
-bytes the harness made from the seed. Per layer: RMSNorm, q/k/v
+port: it imports nothing of `gguf_tpu_torch` and takes only the tensors
+the harness made from the seed. Per layer: RMSNorm, q/k/v
 projections, rotary embedding in llama.cpp's NORM order (pairs 2j, 2j+1:
 the order llama.cpp's converter permutes llama and mistral q/k weights
 into), K and V rounded through the served INT8 cache (one absmax/127
@@ -21,7 +22,8 @@ import math
 
 import torch
 
-from ..model import PROJECTIONS, Model
+from ..archs.llama import PROJECTIONS
+from ..model import F32, Model
 
 
 def _f16(b: torch.Tensor) -> torch.Tensor:
@@ -82,21 +84,84 @@ def dequant_q8_0(raw: torch.Tensor, k: int) -> torch.Tensor:
     return (_f16(blk[..., 0:2])[..., None] * q).reshape(raw.shape[0], k)
 
 
-DEQUANT = {"q4_k": dequant_q4_k, "q6_k": dequant_q6_k, "q8_0": dequant_q8_0}
+def dequant_q5_k(raw: torch.Tensor, k: int) -> torch.Tensor:
+    """llama.cpp `dequantize_row_q5_K`: 176-byte blocks of d, dmin, 12
+    scale bytes, 32 qh bytes and 128 qs bytes; 64-element groups j take
+    the low nibbles (sub-block 2j) then the high nibbles (2j + 1) of 32 qs
+    bytes, each plus 16 where bit 2j (2j + 1) of the element's qh byte is
+    set."""
+    blk = raw.reshape(raw.shape[0], k // 256, 176)
+    d, dmin = _f16(blk[..., 0:2]), _f16(blk[..., 2:4])
+    sc, mn = _scale_min_k4(blk[..., 4:16])
+    qh = blk[..., 16:48].int()
+    qs = blk[..., 48:176].int().reshape(*blk.shape[:2], 4, 32)
+    q = torch.stack([qs & 15, qs >> 4], dim=3).reshape(*blk.shape[:2], 8, 32)
+    bit = torch.arange(8, device=raw.device)[:, None]
+    q = q + 16 * ((qh[..., None, :] >> bit) & 1)
+    y = (d[..., None] * sc)[..., None] * q - (dmin[..., None] * mn)[..., None]
+    return y.reshape(raw.shape[0], k)
+
+
+def dequant_q2_k(raw: torch.Tensor, k: int) -> torch.Tensor:
+    """llama.cpp `dequantize_row_q2_K`: 84-byte blocks of 16 scale bytes
+    (low nibble the scale, high nibble the min), 64 qs bytes, d and dmin;
+    each 128-element half n takes qs[32n:32n+32], and its 16-element
+    sub-blocks 8n + 2j and 8n + 2j + 1 the 2-bit codes at shift 2j of
+    bytes 0-15 and 16-31."""
+    blk = raw.reshape(raw.shape[0], k // 256, 84)
+    sc = blk[..., 0:16].int()
+    qs = blk[..., 16:80].int().reshape(*blk.shape[:2], 2, 1, 32)
+    d, dmin = _f16(blk[..., 80:82]), _f16(blk[..., 82:84])
+    shift = 2 * torch.arange(4, device=raw.device)[:, None]
+    q = ((qs >> shift) & 3).reshape(*blk.shape[:2], 16, 16)
+    y = ((d[..., None] * (sc & 15).float())[..., None] * q
+         - (dmin[..., None] * (sc >> 4).float())[..., None])
+    return y.reshape(raw.shape[0], k)
+
+
+def dequant_q3_k(raw: torch.Tensor, k: int) -> torch.Tensor:
+    """llama.cpp `dequantize_row_q3_K`: 110-byte blocks of 32 hmask bytes,
+    64 qs bytes, 12 bytes packing 16 6-bit scales and d; each 128-element
+    half n takes qs[32n:32n+32], and its sub-blocks 8n + 2j and
+    8n + 2j + 1 the 2-bit codes at shift 2j of bytes 0-15 and 16-31, less
+    4 where bit 4n + j of the element's hmask byte is clear, times
+    d * (scale - 32)."""
+    blk = raw.reshape(raw.shape[0], k // 256, 110)
+    hm = blk[..., 0:32].int().reshape(*blk.shape[:2], 1, 1, 32)
+    qs = blk[..., 32:96].int().reshape(*blk.shape[:2], 2, 1, 32)
+    a, b, c = (blk[..., 96 + 4 * i:100 + 4 * i].int() for i in range(3))
+    sc = torch.cat([(a & 15) | ((c & 3) << 4), (b & 15) | (((c >> 2) & 3) << 4),
+                    (a >> 4) | (((c >> 4) & 3) << 4),
+                    (b >> 4) | (((c >> 6) & 3) << 4)], -1) - 32
+    d = _f16(blk[..., 108:110])
+    j = torch.arange(4, device=raw.device)[:, None]
+    bit = torch.arange(8, device=raw.device).reshape(2, 4, 1)
+    q = ((qs >> (2 * j)) & 3) - 4 * (1 - ((hm >> bit) & 1))
+    y = ((d[..., None] * sc.float())[..., None]
+         * q.reshape(*blk.shape[:2], 16, 16).float())
+    return y.reshape(raw.shape[0], k)
+
+
+DEQUANT = {"q2_k": dequant_q2_k, "q3_k": dequant_q3_k, "q4_k": dequant_q4_k,
+           "q5_k": dequant_q5_k, "q6_k": dequant_q6_k, "q8_0": dequant_q8_0}
 
 
 def dequant(entry, rows=None) -> torch.Tensor:
-    """(format, (M, K), (M, bytes per row) uint8) -> (M, K) float32, or
-    only the rows `rows`."""
-    fmt, (_, k), raw = entry
+    """(format, shape, the harness's view) -> float32 of `shape` (an F32
+    tensor as it is), or only the leading-axis entries `rows`: a block
+    tensor's view is uint8 (*shape[:-1], bytes per row), dequantized row by
+    row."""
+    fmt, shape, raw = entry
     if rows is not None:
         raw = raw[rows]
-    return DEQUANT[fmt](raw, k)
+    if fmt == F32:
+        return raw.float()
+    flat = raw.reshape(-1, raw.shape[-1])
+    return DEQUANT[fmt](flat, shape[-1]).reshape(*raw.shape[:-1], shape[-1])
 
 
-def rms_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """The model's norms are all ones, as the harness writes them."""
-    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+def rms_norm(x: torch.Tensor, eps: float, w: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * w
 
 
 def rope_norm(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -189,21 +254,23 @@ def _served_logits(m: Model, weights: dict, requests: list, device,
                          device=device) for p, s in requests]
     xs = [dequant(weights["token_embd.weight"], t) for t in seqs]
     for i in range(m.layers):
-        w = {p: dequant(weights[f"blk.{i}.{p}.weight"]) for p in PROJECTIONS}
+        w = {p: dequant(weights[f"blk.{i}.{p}.weight"])
+             for p in (*PROJECTIONS, "attn_norm", "ffn_norm")}
         for j, t in enumerate(seqs):
             x = xs[j]
             pos = torch.arange(len(t), device=device)
-            h = act(rms_norm(x, m.eps))
+            h = act(rms_norm(x, m.eps, w["attn_norm"]))
             q = (h @ w["attn_q"].T).reshape(len(t), m.heads, m.head_dim)
             k = (h @ w["attn_k"].T).reshape(len(t), m.kv_heads, m.head_dim)
             v = (h @ w["attn_v"].T).reshape(len(t), m.kv_heads, m.head_dim)
             q, k = rope_norm(q, pos, m.theta), rope_norm(k, pos, m.theta)
             o = attention(m, q, int8_rows(k), int8_rows(v))
             x = x + act(o) @ w["attn_output"].T
-            h = act(rms_norm(x, m.eps))
+            h = act(rms_norm(x, m.eps, w["ffn_norm"]))
             gate, up = h @ w["ffn_gate"].T, h @ w["ffn_up"].T
             xs[j] = x + act(torch.nn.functional.silu(gate) * up) @ w["ffn_down"].T
         del w
     head = dequant(weights["token_embd.weight" if m.tied else "output.weight"])
-    return [act(rms_norm(x[len(p) - 1:], m.eps)) @ head.T
+    norm = dequant(weights["output_norm.weight"])
+    return [act(rms_norm(x[len(p) - 1:], m.eps, norm)) @ head.T
             for (p, _), x in zip(requests, xs)]

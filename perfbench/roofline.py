@@ -3,8 +3,11 @@ published peaks.
 
 Work is computed from the traffic and the configuration's shapes, never
 from what the implementation launches: a decode step of `live` slots
-needs every quantized matrix read once and 2 * P_mm * live FLOPs in the
-matrix products, plus attention over each live token's context.
+needs the quantized matrices it reaches read once and 2 * P_mm * live
+FLOPs in the matrix products, plus attention over each live token's
+context. The counts that depend on the architecture (P_mm, the head, the
+bytes a step reads, attention per context row, a cached row) come from
+its module, `perfbench/archs/<name>.py`.
 
 Peaks: NVIDIA's data sheet for the H100 SXM (dense, no sparsity), which
 assumes the 700 W power limit; every run prints the card's limit beside
@@ -13,7 +16,7 @@ them.
 
 from __future__ import annotations
 
-from .model import PROJECTIONS, Model, nbytes, projection_shape, tensor_plan
+from .model import Model, arch
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -21,38 +24,30 @@ KV_SCALE_BYTES = 4       # one f32 scale per (token, KV head) row of K or V
 
 
 def matmul_params(m: Model) -> int:
-    """P_mm: parameters of every matrix product of a token, the head
-    included (the embedding lookup is not a product)."""
-    per_layer = sum(r * c for r, c in (projection_shape(m, p)
-                                       for p in PROJECTIONS))
-    return m.layers * per_layer + m.vocab * m.dim
+    """P_mm: parameters of the matrix products one token uses, the head
+    included (the embedding lookup is not a product; of routed experts
+    only those a token is routed to)."""
+    return arch(m).matmul_params(m)
 
 
 def head_params(m: Model) -> int:
-    return m.vocab * m.dim
+    return arch(m).head_params(m)
 
 
-def step_weight_bytes(m: Model) -> int:
-    """Bytes of the quantized matrices one decode step reads once: every
-    projection and the head as stored (a tied head is token_embd)."""
-    total = 0
-    for name, fmt, (rows, cols) in tensor_plan(m):
-        if name == "token_embd.weight" and not m.tied:
-            continue            # looked up by row, not read by a product
-        total += nbytes(fmt, rows, cols)
-    return total
+def step_weight_bytes(m: Model, live: int) -> float:
+    """Bytes of the quantized matrices one decode step of `live` slots
+    reads once (of routed experts, those the step's tokens reach)."""
+    return arch(m).step_weight_bytes(m, live)
 
 
 def attn_flops_per_row(m: Model) -> int:
-    """Attention FLOPs per token per context row: q.k and p.v, 2 each per
-    head dimension, over every query head of every layer."""
-    return 4 * m.layers * m.heads * m.head_dim
+    """Attention FLOPs per token per context row."""
+    return arch(m).attn_flops_per_row(m)
 
 
 def kv_row_bytes(m: Model) -> int:
-    """Bytes of one cached token as stored, K and V, every layer: int8
-    codes plus one f32 scale per KV head."""
-    return 2 * m.layers * m.kv_heads * (m.head_dim + KV_SCALE_BYTES)
+    """Bytes of one cached token as stored, K and V, every layer."""
+    return arch(m).kv_row_bytes(m)
 
 
 def decode_flops(m: Model, tokens: int, context_rows: int) -> float:
@@ -75,7 +70,7 @@ def prefill_flops(m: Model, n: int) -> float:
 def mmq_bound_s(m: Model, live: int) -> float:
     """Least time of one decode step's quantized matrix products at `live`
     slots: the larger of the bytes read once and the products' FLOPs."""
-    return max(step_weight_bytes(m) / PEAK_HBM_BYTES_PER_S,
+    return max(step_weight_bytes(m, live) / PEAK_HBM_BYTES_PER_S,
                2.0 * matmul_params(m) * live / PEAK_BF16_FLOPS)
 
 
