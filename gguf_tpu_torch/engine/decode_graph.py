@@ -132,6 +132,12 @@ class ChunkGraphs:
         # prefill chunks whose key an earlier chunk captured (on the CPU:
         # ran), so that a capture inside a window shows
         self.prefill_replays = 0
+        # per prefill key, what one chunk's routed FFN ran: (expert layers,
+        # expert-product rows) from `llama.moe_layers_run` and
+        # `llama.expert_rows` where the chunk last ran in Python (its
+        # capture; on the CPU each run); and that of the last chunk
+        self.prefill_moe: dict = {}
+        self.last_prefill_moe = (0, 0)
         self.on_card = self.device.type == "cuda"
         # pinned staging buffers of `inputs` and `prefill_in` (on the card)
         self._inputs_host = self._prefill_host = None
@@ -227,13 +233,14 @@ class ChunkGraphs:
             if self.on_card:
                 with tracer.span("capture", t=t, span=span):
                     graph = self._capture(
-                        lambda gen: self._prefill_chunk(step, t))
+                        lambda gen: self._prefill_chunk(step, key))
             self.prefill_graphs[key] = graph
         graph = self.prefill_graphs[key]
         if graph is not None:
             graph.replay()
         else:
-            self._prefill_chunk(step, t)
+            self._prefill_chunk(step, key)
+        self.last_prefill_moe = self.prefill_moe[key]
         return self.prefill_out
 
     def _copy_in(self, dst: torch.Tensor, staging, parts) -> None:
@@ -282,15 +289,20 @@ class ChunkGraphs:
                                    bucket.top_logprobs), zip(*extras)):
                 dst.copy_(torch.stack(parts, dim=1))
 
-    def _prefill_chunk(self, step, t: int) -> None:
-        """`step` on the static prefill input, its kept logits row gathered
-        into the static output and its logits' finiteness ANDed into
-        `prefill_finite`: what a prefill graph captures, and what the CPU
-        runs."""
+    def _prefill_chunk(self, step, key: tuple) -> None:
+        """`step` on the static prefill input of key (t, span, MMOpts), its
+        kept logits row gathered into the static output and its logits'
+        finiteness ANDed into `prefill_finite`: what a prefill graph
+        captures, and what the CPU runs. Records what the routed FFN ran
+        in `prefill_moe[key]`."""
+        t = key[0]
+        ran = llama.moe_layers_run, llama.expert_rows
         inp = self.prefill_in
         logits = step(inp[3:3 + t].view(1, t), inp[1:2], inp[0:1])
         self.prefill_out.copy_(logits[0].index_select(0, inp[2:3])[0])
         self.prefill_finite.logical_and_(torch.isfinite(logits).all())
+        self.prefill_moe[key] = (llama.moe_layers_run - ran[0],
+                                 llama.expert_rows - ran[1])
 
     def _capture(self, body, stochastic: bool = False):
         """Warm `body(generator)` up on the side stream, then capture it

@@ -51,7 +51,12 @@ class GenerationResult:
     # prefill_replays the chunks that replayed a graph an earlier chunk
     # captured (on the CPU: ran on the static buffers of a key run
     # before), prefill_syncs the host-device syncs inside prefill_s;
-    # decode_finite is False if any decode step's logits were not finite
+    # prefill_moe_routed, the token-expert pairs the prefills' routed FFN
+    # needs (k per real prompt token per expert layer that `moe_mlp` ran),
+    # and prefill_expert_rows, the rows its expert products ran over (as
+    # `moe_mlp` counts them, per chunk key: `ChunkGraphs.prefill_moe`),
+    # both zero for a dense model; decode_finite is False if any decode
+    # step's logits were not finite
     stats: dict = field(default_factory=dict)
     # when generate(logprobs=k): one {"logprob": f, "top": [(id, lp), ...]}
     # entry per generated token
@@ -72,6 +77,9 @@ class LLM:
         self.device = torch.device(device)
         self.cfg, params = load_llama(path, self.device)
         self.params = fuse_llama_params(params)
+        # the unfused weights go before the cache is allocated: a routed
+        # model's gate and up stacks were copied into their pairs
+        del params
         with GGUFReader(path) as r:
             md = r.metadata
         self.eos_id = (int(md.get("tokenizer.ggml.eos_token_id", 2))
@@ -133,11 +141,14 @@ class LLM:
         return logits[0, last_idx]
 
     def _prefill_chunks(self, ids, slot: int, start: int = 0,
-                        widths: dict | None = None) -> torch.Tensor:
+                        widths: dict | None = None,
+                        stats: dict | None = None) -> torch.Tensor:
         """Prefill `ids` at start.. in PREFILL_CHUNK pieces with power-of-two
         tail buckets, halved until the padded call fits the cache;
-        `widths`, where given, counts the chunks by padded width. Returns
-        the last prompt token's logits row (the caller's own copy)."""
+        `widths`, where given, counts the chunks by padded width, and
+        `stats` what their routed FFN ran (`prefill_moe_routed`,
+        `prefill_expert_rows`). Returns the last prompt token's logits row
+        (the caller's own copy)."""
         n = len(ids)
         if start + n >= self.max_seq:
             raise ValueError(f"prompt of {n} tokens at {start} does not fit "
@@ -158,6 +169,11 @@ class LLM:
                                        span)
             if widths is not None:
                 widths[tp] = widths.get(tp, 0) + 1
+            if stats is not None:
+                layers, rows = self.graphs.last_prefill_moe
+                stats["prefill_moe_routed"] += (
+                    self.cfg.n_experts_used * layers * take)
+                stats["prefill_expert_rows"] += rows
             off += take
             if off >= n:
                 return logits.clone()
@@ -253,7 +269,8 @@ class LLM:
         prefill_ns = decode_ns = 0
         timing = {"decode_tokens": 0, "decode_finite": True,
                   "prefill_tokens": 0, "prefill_widths": {},
-                  "prefill_syncs": 0}
+                  "prefill_syncs": 0, "prefill_moe_routed": 0,
+                  "prefill_expert_rows": 0}
         capture_s = self.graphs.capture_s
         replays = self.graphs.prefill_replays
 
@@ -287,7 +304,8 @@ class LLM:
                     syncs = llama.host_syncs
                     with tr.span("prefill", t0) as sp:
                         logits = self._prefill_chunks(
-                            ids, s, widths=timing["prefill_widths"])
+                            ids, s, widths=timing["prefill_widths"],
+                            stats=timing)
                         first_t = sample(logits[None, :], sampler, gen)
                         first = int(first_t[0])
                         llama.host_syncs += 1

@@ -2,13 +2,13 @@
 over an INT8 KV cache -> SwiGLU, every projection a fused dequant+matmul.
 
 Counterpart of `gguf_tpu/models/llama.py` (llama arms of `forward`,
-`attention`, `mlp`; `MMOpts`, `linear`, `embed`, `rms_norm`, the rope
-helpers, `init_kv_cache`, `_quantize_kv`, `_cache_update` and
-`fuse_llama_params` at tp = 1). It keeps the reference's rounding points:
-the residual stream is bf16, every `linear` output is cast to bf16,
-`rms_norm` computes in f32 and returns bf16, K/V go to the cache inserts
-as f32, the t > 16 prefill arm attends in f32, and logits are bf16 then
-f32.
+`attention`, `mlp`, `moe_mlp` in its mixtral form; `MMOpts`, `linear`,
+`embed`, `rms_norm`, the rope helpers, `init_kv_cache`, `_quantize_kv`,
+`_cache_update` and `fuse_llama_params` at tp = 1). It keeps the
+reference's rounding points: the residual stream is bf16, every `linear`
+output is cast to bf16, `rms_norm` computes in f32 and returns bf16, K/V
+go to the cache inserts as f32, the t > 16 prefill arm attends in f32,
+and logits are bf16 then f32.
 
 PyTorch runs eagerly and the port updates the KV cache IN PLACE:
 `forward` returns the same cache list it was given. Nothing in `forward`
@@ -129,6 +129,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 host_syncs = 0
+
+# the expert layers `moe_mlp` ran and the rows its expert products ran
+# over, added where it runs: in eager runs and in a graph's capture, never
+# in a replay (`ChunkGraphs` keeps each prefill key's share)
+moe_layers_run = 0
+expert_rows = 0
 
 # --------------------------------------------------------- INT8 KV cache ---
 
@@ -270,11 +276,69 @@ def mlp(layer, x, opts: MMOpts, act_fn: str = "silu"):
     return linear(layer["down"], act, opts).reshape(b, t, -1)
 
 
+def experts(layer) -> list:
+    """A routed layer's experts as dense FFN layers for `mlp`: expert e's
+    rows of each stack (views, no copy), its gate and up fused as
+    "gate_up" where `fuse_llama_params` paired them."""
+    n = layer["gate_inp"].shape[0]
+
+    def part(w, e):
+        m = w.shape[0] // n
+        return w.row_block(e * m, (e + 1) * m)
+
+    names = (("gate_up", "down") if "gate_up_exps" in layer
+             else ("gate", "up", "down"))
+    return [{nm: part(layer[nm + "_exps"], e) for nm in names}
+            for e in range(n)]
+
+
+def routing_weights(layer, xf: torch.Tensor, cfg: LlamaConfig):
+    """(N, E) f32 weights of each row's experts: the router's f32 logits
+    of the rows xf (N, dim), a softmax over all E, the `n_experts_used`
+    largest kept (an index compare, no scatter) and renormalised to sum
+    1, zero elsewhere."""
+    logits = xf.float() @ layer["gate_inp"].float().T
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.topk(probs, cfg.n_experts_used, dim=-1).indices
+    sel = (top[..., None] == torch.arange(probs.shape[-1],
+                                          device=xf.device)).any(1)
+    w = torch.where(sel, probs, 0.0)
+    return w / w.sum(dim=-1, keepdim=True)
+
+
+def moe_mlp(layer, x, cfg: LlamaConfig, opts: MMOpts):
+    """Mixture-of-experts FFN (mixtral family), as the JAX package's
+    `moe_mlp` computes it: router logits in f32 from the bf16 normed
+    input, a softmax over all E experts, the top `n_experts_used` kept
+    and renormalised to sum 1 (zero elsewhere), and the weighted sum in
+    f32, in expert order, of every expert's SwiGLU (`mlp`: K1's fused
+    gate_up, the GLU fused into a Q4_K down kernel), cast to bf16.
+
+    Evaluation is dense per expert: each expert runs over every row, and
+    its zero weight drops it where the token was not routed to it. So the
+    routing reads nothing back to the host, launches the same kernels
+    whatever the tokens choose, and sums without atomics: a CUDA graph
+    captures it and a replay equals its eager run bit for bit. Adds the
+    layer to `moe_layers_run` and each expert's rows to `expert_rows`."""
+    global moe_layers_run, expert_rows
+    b, t, d = x.shape
+    w = routing_weights(layer, x.reshape(b * t, d), cfg)
+    acc = torch.zeros((b * t, d), dtype=torch.float32, device=x.device)
+    moe_layers_run += 1
+    for e, expert in enumerate(experts(layer)):
+        out = mlp(expert, x, opts, cfg.act_fn).reshape(b * t, d)
+        expert_rows += b * t
+        acc = acc + w[:, e:e + 1] * out.float()
+    return acc.to(x.dtype).reshape(b, t, d)
+
+
 def fuse_llama_params(params: dict) -> dict:
     """Fuse each layer's Q/K/V and gate/up projections along M (one MMQ
     launch instead of three and two; only same-format quantized groups
-    fuse). An untied quantized embedding table of at most 600 MiB as f32
-    is kept dequantized, so a lookup is a row gather."""
+    fuse); in a routed layer, each expert's gate and up rows are paired
+    into one stack "gate_up_exps" (expert e's gate_up its rows e*2M..
+    (e+1)*2M). An untied quantized embedding table of at most 600 MiB as
+    f32 is kept dequantized, so a lookup is a row gather."""
 
     def fusable(ws):
         return (all(isinstance(w, QuantWeight) for w in ws)
@@ -288,6 +352,12 @@ def fuse_llama_params(params: dict) -> dict:
                                       layer.pop("wv")])
         if "gate" in layer and fusable([layer["gate"], layer["up"]]):
             layer["gate_up"] = concat_m([layer.pop("gate"), layer.pop("up")])
+        if ("gate_exps" in layer
+                and fusable([layer["gate_exps"], layer["up_exps"]])):
+            pairs = [p for ex in experts(layer)
+                     for p in (ex["gate"], ex["up"])]
+            layer["gate_up_exps"] = concat_m(pairs)
+            del layer["gate_exps"], layer["up_exps"]
         layers.append(layer)
     out = {**params, "layers": layers}
     emb = out.get("token_embd")
@@ -315,7 +385,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor,
                                        rope=rope, span=span, rows=rows)
         x = x + attn_out
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + mlp(layer, h, opts, cfg.act_fn)
+        x = x + (moe_mlp(layer, h, cfg, opts) if "gate_inp" in layer
+                 else mlp(layer, h, opts, cfg.act_fn))
     x = rms_norm(x, params["output_norm"], cfg.norm_eps)
     b, t, _ = x.shape
     logits = linear(params["output"], x.reshape(b * t, -1), opts)

@@ -11,12 +11,18 @@ loads weights unpadded.
 Params layout (same keys as the reference): {"token_embd", "output",
 "output_norm", "layers": [{"attn_norm", "ffn_norm", "wq", "wk", "wv",
 "wo", "gate", "up", "down"}, ...]}; quantized weights are `QuantWeight`s,
-float tensors stay in their file dtype.
+float tensors stay in their file dtype. A layer of a mixtral-family file
+(`n_experts` > 0) has, in place of "gate", "up" and "down", its router
+"gate_inp" (E, dim) in f32 and the expert stacks "gate_exps",
+"up_exps", "down_exps": each 3-D `ffn_*_exps` tensor (E, M, K) as one
+`QuantWeight` of E*M rows, expert e its rows e*M..(e+1)*M
+(`QuantWeight.row_block`, a view).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
@@ -48,8 +54,13 @@ def _load_f32(reader: GGUFReader, name: str, device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
-_LAYER_TENSORS = ("attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v",
-                  "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+_ATTN_TENSORS = ("attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v",
+                 "attn_output")
+_DENSE_FFN = ("ffn_gate", "ffn_up", "ffn_down")
+# a mixtral-family layer's FFN: the router and the three expert stacks
+_MOE_FFN = ("ffn_gate_inp", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
+_EXPERT_PARAMS = (("gate_exps", "ffn_gate_exps"), ("up_exps", "ffn_up_exps"),
+                  ("down_exps", "ffn_down_exps"))
 # the LlamaConfig fields `forward` applies; every other field must keep its
 # default (rope_scaling_kind: "none" or "linear" only)
 _COMPUTED_FIELDS = frozenset((
@@ -64,13 +75,29 @@ _NOT_PORTED = ("the port's forward does not compute it (ROADMAP.md, queue 1, "
 def check_forward_computes(cfg: LlamaConfig) -> None:
     """Raise NotImplementedError naming the first config field that the
     port's `forward` would ignore: a field outside _COMPUTED_FIELDS that is
-    not at its default, or a rope scaling other than none/linear."""
+    not at its default, or a rope scaling other than none/linear.
+
+    The mixtral form of routed experts is computed (`moe_mlp`):
+    `n_experts` > 0 with 0 < `n_experts_used` <= `n_experts`, and
+    `expert_ffn_dim` 0 or `ffn_dim`; every other MoE field (shared
+    experts, a routed scale, sigmoid gating, no renormalisation, leading
+    dense layers) must keep its default."""
     if cfg.rope_scaling_kind not in ("none", "linear"):
         raise NotImplementedError(
             f"rope_scaling_kind = {cfg.rope_scaling_kind!r}: {_NOT_PORTED}")
+    computed = _COMPUTED_FIELDS
+    if cfg.n_experts > 0:
+        if not 0 < cfg.n_experts_used <= cfg.n_experts:
+            raise NotImplementedError(
+                f"n_experts = {cfg.n_experts} with n_experts_used = "
+                f"{cfg.n_experts_used}: the port routes each token to "
+                "0 < n_experts_used <= n_experts experts")
+        computed = computed | {"n_experts", "n_experts_used"}
+        if cfg.expert_ffn_dim == cfg.ffn_dim:
+            computed = computed | {"expert_ffn_dim"}
     for f in dataclasses.fields(cfg):
         value = getattr(cfg, f.name)
-        if f.name not in _COMPUTED_FIELDS and value != f.default:
+        if f.name not in computed and value != f.default:
             raise NotImplementedError(f"{f.name} = {value!r}: {_NOT_PORTED}")
 
 
@@ -86,14 +113,30 @@ def check_device_computes(cfg: LlamaConfig, device_type: str) -> None:
 
 def check_tensors_loaded(names, cfg: LlamaConfig) -> None:
     """Raise NotImplementedError naming the first tensor `load_llama` would
-    not load (biases, fused qkv, q/k norms, experts, position_embd, ...)."""
+    not load (biases, fused qkv, q/k norms, a router or expert stacks in a
+    dense file, dense FFN weights in an expert file, the pre-2024
+    per-expert 2-D tensors, position_embd, ...), or the first that an
+    expert file lacks."""
+    ffn = _MOE_FFN if cfg.n_experts else _DENSE_FFN
+    layer_names = [f"blk.{i}.{t}.weight" for i in range(cfg.n_layers)
+                   for t in _ATTN_TENSORS + ffn]
     known = {"token_embd.weight", "output.weight", "output_norm.weight",
-             "rope_freqs.weight"}
-    known.update(f"blk.{i}.{t}.weight" for i in range(cfg.n_layers)
-                 for t in _LAYER_TENSORS)
+             "rope_freqs.weight", *layer_names}
     for name in names:
-        if name not in known:
-            raise NotImplementedError(f"tensor {name}: {_NOT_PORTED}")
+        if name in known:
+            continue
+        if cfg.n_experts and re.fullmatch(
+                r"blk\.\d+\.ffn_(gate|up|down)\.\d+\.weight", name):
+            raise NotImplementedError(
+                f"tensor {name}: per-expert 2-D tensors (the pre-2024 "
+                "schema) are not read; the port loads the 3-D "
+                "ffn_*_exps stacks")
+        raise NotImplementedError(f"tensor {name}: {_NOT_PORTED}")
+    if cfg.n_experts:
+        missing = next((n for n in layer_names if n not in names), None)
+        if missing is not None:
+            raise NotImplementedError(
+                f"tensor {missing}: missing from an expert file")
 
 
 def load_llama(path: str, device="cuda"):
@@ -136,11 +179,15 @@ def load_llama(path: str, device="cuda"):
             layer = {nk: _load_f32(reader, p + tk, device)
                      for nk, tk in (("attn_norm", "attn_norm.weight"),
                                     ("ffn_norm", "ffn_norm.weight"))}
+            ffn = ((("gate", "ffn_gate"), ("up", "ffn_up"),
+                    ("down", "ffn_down")) if not cfg.n_experts
+                   else _EXPERT_PARAMS)
             for nk, tk in (("wq", "attn_q"), ("wk", "attn_k"),
-                           ("wv", "attn_v"), ("wo", "attn_output"),
-                           ("gate", "ffn_gate"), ("up", "ffn_up"),
-                           ("down", "ffn_down")):
+                           ("wv", "attn_v"), ("wo", "attn_output"), *ffn):
                 layer[nk] = _load_weight(reader, p + tk + ".weight", device)
+            if cfg.n_experts:
+                layer["gate_inp"] = _load_f32(
+                    reader, p + "ffn_gate_inp.weight", device)
             params["layers"].append(layer)
     return cfg, params
 
@@ -156,7 +203,9 @@ def write_random_llama_gguf(path: str, cfg: LlamaConfig,
     draws in the same order. Projections and the embedding are quantized
     to `fmt`; the output head is Q6_K for Q4_K, Q5_K and Q6_K `fmt`
     (llama.cpp's Q4_K_M recipe) and `fmt` otherwise (Q2_K, Q3_K, Q8_0,
-    Q4_0, IQ4_XS, ...); norms are F32 ones."""
+    Q4_0, IQ4_XS, ...); norms are F32 ones. With `cfg.n_experts` > 0 each
+    layer's FFN is a mixtral-family one: an F32 router `ffn_gate_inp`
+    (E, dim) and the 3-D `ffn_{gate,up,down}_exps` stacks in `fmt`."""
     rng = np.random.default_rng(seed)
     d, f, v = cfg.dim, cfg.ffn_dim, cfg.vocab_size
     q_d = cfg.n_heads * cfg.head_dim
@@ -186,10 +235,22 @@ def write_random_llama_gguf(path: str, cfg: LlamaConfig,
         for name, shape in (("attn_q.weight", (q_d, d)),
                             ("attn_k.weight", (kv_d, d)),
                             ("attn_v.weight", (kv_d, d)),
-                            ("attn_output.weight", (d, q_d)),
-                            ("ffn_gate.weight", (f, d)),
-                            ("ffn_up.weight", (f, d)),
-                            ("ffn_down.weight", (d, f))):
+                            ("attn_output.weight", (d, q_d))):
+            tensors[p + name] = quant(shape)
+        if cfg.n_experts:
+            e, ef = cfg.n_experts, cfg.expert_ffn_dim or f
+            # the router at std 0.15: margins wide enough that a bf16
+            # rounding seldom flips a token's top-k
+            tensors[p + "ffn_gate_inp.weight"] = (
+                GGMLType.F32, (e, d),
+                (rng.standard_normal((e, d)) * 0.15).astype(np.float32))
+            ffn = (("ffn_gate_exps.weight", (e, ef, d)),
+                   ("ffn_up_exps.weight", (e, ef, d)),
+                   ("ffn_down_exps.weight", (e, d, ef)))
+        else:
+            ffn = (("ffn_gate.weight", (f, d)), ("ffn_up.weight", (f, d)),
+                   ("ffn_down.weight", (d, f)))
+        for name, shape in ffn:
             tensors[p + name] = quant(shape)
     if cfg.rope_freq_factors is not None:
         rd = cfg.rope_dim or cfg.head_dim

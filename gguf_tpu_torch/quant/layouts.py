@@ -112,6 +112,12 @@ class QuantWeight:
         package's `QuantTensor.dequantize()`."""
         return _DEQUANT[self.fmt](self)
 
+    def row_block(self, lo: int, hi: int) -> "QuantWeight":
+        """Output rows lo..hi-1 as views of the fields, no copy: one
+        expert of a stack of experts (each field stays contiguous)."""
+        return QuantWeight(self.fmt, (hi - lo, self.shape[1]),
+                           {n: f[lo:hi] for n, f in self.fields.items()})
+
     def take_rows(self, ids: torch.Tensor) -> "QuantWeight":
         """Select output rows (M) — rows are whole block runs."""
         ids = ids.reshape(-1).to(self.device)
