@@ -178,6 +178,12 @@ one call. `--tiled-split` instead times K9 alone at its headline shape
 and at long spans of Llama-3 geometries (CUDA events, and
 `torch.profiler` device time by kernel name), and checks it against its
 plain version; it too imports nothing an earlier tree lacks.
+`--k1-decode` instead times K1 at n = 16 at the served decode shapes
+(Mistral-7B's Q4_K projections; Mixtral-8x7B's attn_q and expert gate_up
+and down are the same), its decode tile and the tensor-core tile it
+replaced there in turns (old, new, new, old) in one run: profiler device
+time per call and of K1's own kernel, the bytes bound and the share of
+it, each output first checked against the plain version.
 
 Prints the card's name and power limit, a per-shape table, seconds per
 phase and in total, one JSON line {"kernels": [...]} (per kernel its
@@ -283,6 +289,9 @@ MMQ_NS = (1, 16, 512)
 # 128 weight rows per block; K12's split arm up to 64, folded above); K1
 # "high" (the SIMT tile) at a decode and a prefill width
 TC_NS = (1, 8, 9, 16, 17, 64, 65, 512)
+# `--k1-decode`: K1's decode shapes in the served cells, (label, M, K, glu)
+K1_DECODE = (("wq/wo", 4096, 4096, None), ("wqkv", 6144, 4096, None),
+             ("gate_up", 28672, 4096, None), ("down", 4096, 14336, "silu"))
 K1_HIGH_NS = (16, 512)
 BLOCK32_NS = (1, 16, 64, 65, 512)  # both sides of the reference's n <= 64 arm
 COMPAT_MNS, COMPAT_KS = (1, 4, 16), (32, 64, 96, 128)
@@ -1254,6 +1263,87 @@ def tiled_split(seed: int) -> None:
         _time_tiled(f"{label} g{g} hd{hd}", q, cache, pos, span, "fast")
         del cache
         torch.cuda.empty_cache()
+
+
+def random_q4_k(m: int, k: int, gen: torch.Generator) -> QuantWeight:
+    """Random Q4_K blocks on the card: uniform codes and 6-bit scales and
+    mins, d and dmin fp16 constants."""
+    blocks = torch.empty((m, k // 256, 144), dtype=torch.uint8, device=DEVICE)
+    blocks.random_(0, 256, generator=gen)
+    blocks[:, :, :4] = torch.tensor([2e-4, 1e-3], dtype=torch.float16).view(
+        torch.uint8).to(DEVICE)
+    return QuantWeight("q4_k", (m, k), {"blocks": blocks.view(m, -1)})
+
+
+def kernel_ms(fn, part: str, iters: int = 50, tries: int = 3) -> tuple:
+    """(device ms per call of every kernel fn() runs, of those whose name
+    holds `part`) from torch.profiler, the window with the most device
+    events kept (as `device_ms`)."""
+    fn()
+    torch.cuda.synchronize()
+    best = (0, None, None)
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        count = sum(e.count for e in kern)
+        if count > best[0]:
+            best = (count, *(sum(e.self_device_time_total for e in ks)
+                             / iters / 1e3 for ks in
+                             (kern, [e for e in kern if part in e.key])))
+    return best[1], best[2]
+
+
+def k1_decode(seed: int) -> dict:
+    """`--k1-decode`: K1 "fast" at n = 16 at each K1_DECODE shape, the
+    decode tile (`ops/mmq_q4_k.py:DEC_MAX_N` = 16, as served) and the
+    tensor-core tile it replaced there (DEC_MAX_N = 0: `k1_plan`'s split
+    and add_splits) in turns old, new, new, old; each output within
+    TOL_MMQ of the plain version. Returns {shape: readings}."""
+    k1 = importlib.import_module("gguf_tpu_torch.ops.mmq_q4_k")
+    with phase("build mmq_q4_k"):
+        path = build.build("mmq_q4_k")
+    with open(path[:-3] + ".log") as f:
+        for line in f:
+            if "registers" in line or "spill" in line or "C7515" in line:
+                log(f"  ptxas mmq_q4_k: {line.strip()}")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    served, out = k1.DEC_MAX_N, {}
+    try:
+        for label, m, k, glu in K1_DECODE:
+            w = random_q4_k(m, k, gen)
+            x = torch.randn((16, 2 * k if glu else k), generator=gen,
+                            device=DEVICE).bfloat16()
+            ref = mmq_q4_k_plain(w, x, precision="fast", glu=glu)
+            bound = bound_ms(*_mmq_work(w, x, ref))[0]
+            runs = {"tc": [], "decode": []}
+            for tile in ("tc", "decode", "decode", "tc"):
+                k1.DEC_MAX_N = served if tile == "decode" else 0
+                fn = functools.partial(mmq_q4_k, w, x, precision="fast",
+                                       glu=glu)
+                err, rel = rel_err(fn(), ref)
+                if rel > TOL_MMQ:
+                    raise AssertionError(f"K1 {tile} {label}: rel {rel}")
+                runs[tile].append(kernel_ms(fn, "mmq_q4_k"))
+            shape = f"{label} {m}x{k} n=16" + (f" {glu}" if glu else "")
+            out[shape] = {"bound_ms": bound}
+            for tile, got in runs.items():
+                call = min(c for c, _ in got)
+                own = min(o for _, o in got)
+                out[shape][tile] = {"call_ms": call, "k1_ms": own,
+                                    "share": bound / call}
+                log(f"  K1 {tile:6s} {shape:30s} call {call:.4f} ms (K1 "
+                    f"{own:.4f}), bound {bound:.4f} ms: {100 * bound / call:.1f}%"
+                    f" of it")
+            del w, x, ref
+            torch.cuda.empty_cache()
+    finally:
+        k1.DEC_MAX_N = served
+    return out
 
 
 def _q8_1_input(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
@@ -2266,6 +2356,9 @@ def main() -> int:
     ap.add_argument("--tiled-split", action="store_true",
                     help="time K9 alone at its headline shape and long "
                     "spans, by kernel, instead of the smoke run")
+    ap.add_argument("--k1-decode", action="store_true",
+                    help="time K1's decode tile against the tensor-core tile "
+                    "at n = 16 at the served shapes instead of the smoke run")
     ap.add_argument("--write", choices=sorted(CHECKPOINTS),
                     help=argparse.SUPPRESS)   # a checkpoint writer's child
     args = ap.parse_args()
@@ -2287,6 +2380,9 @@ def main() -> int:
     check_toolchain()
     if args.tiled_split:
         tiled_split(args.seed)
+        return 0
+    if args.k1_decode:
+        print(json.dumps({"k1_decode": k1_decode(args.seed)}))
         return 0
     with phase("build the GGUF quantizer core"):
         build.build("gguf_kquant")     # before the writers that use it

@@ -33,14 +33,20 @@
 //  - two warpgroups per block above n = 64 halve how often each activation
 //    tile is read from L2, and blocks start at different chunks of their K
 //    range so that they do not read the same tile at once;
-//  - at decode widths M/64 blocks cannot fill 132 SMs (32 at M = 2048, 4
-//    for a 256-row wv), so K is cut across the grid's z axis and a second
-//    launch adds the partial tiles in split order: the same bits each run.
+//  - where M/64 blocks cannot fill 132 SMs, K is cut across the grid's z
+//    axis and a second launch adds the partial tiles in split order: the
+//    same bits each run.
+// At decode widths (n <= 16) K1 runs its own tile instead (kquant_dec.cuh:
+// a producer warp and a ring of whole superblocks, two consumer
+// warpgroups, persistent blocks with the split sum inside, and the same
+// bits from fewer instructions per weight); the tile above stays for n >
+// 16, and K8 runs it at every width.
 //
 // "high" (f32 operands, f32 products) cannot go through bf16 tensor cores
 // within its 1e-5 bound and keeps the SIMT tile kquant::mmq_tile, which
 // K8's "high" arm (mmq_q5_k.cu) also runs.
 
+#include "kquant_dec.cuh"
 #include "kquant_tc.cuh"
 
 namespace {
@@ -62,6 +68,27 @@ cudaError_t launch_tc(const uint8_t* w, const __nv_bfloat16* xb, float* out, flo
                                           splits, per, st);
 }
 
+// the decode tile's counters, one per (row tile, warpgroup): zero at load,
+// and every launch leaves them zero
+__device__ int dec_done[kquant_dec::MAX_COUNTERS];
+
+constexpr int DEC_WGS = 2, DEC_STAGES = 4;   // as ops/mmq_q4_k.py:dec_tile
+constexpr int DEC_ROWS = BM * DEC_WGS;
+
+template <int BN>
+__global__ void __launch_bounds__(kquant_dec::Dec<BN, DEC_WGS, DEC_STAGES>::THREADS, 1)
+mmq_q4_k_dec(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+             float* __restrict__ out, float* __restrict__ part, int M, int N, int K) {
+  kquant_dec::tile<BN, DEC_WGS, DEC_STAGES>(tx, tw, out, part, dec_done, M, N, K);
+}
+
+template <int BN>
+cudaError_t launch_dec(const uint8_t* w, const __nv_bfloat16* xb, float* out, float* part,
+                       int M, int N, int K, int blocks, cudaStream_t st) {
+  return kquant_dec::launch<BN, DEC_WGS, DEC_STAGES>(mmq_q4_k_dec<BN>, w, xb, out, part,
+                                                     M, N, K, blocks, st);
+}
+
 template <int BN, int TM, int TN, bool XBF16>
 __global__ void __launch_bounds__(mmq::NTHREADS)
 mmq_q4_k_kernel(const uint8_t* __restrict__ w, const void* __restrict__ x,
@@ -73,15 +100,18 @@ mmq_q4_k_kernel(const uint8_t* __restrict__ w, const void* __restrict__ x,
 
 // w: (M, K/256*144) GGUF bytes, 16-byte aligned; x: (N, ldx) f32 or bf16
 // (ldx = K, or 2K with glu); out: (N, M) f32. glu 0/1/2 = none/silu/gelu.
-// "high" (fast = 0) runs the SIMT tile; xb, part and the split are unused.
+// "high" (fast = 0) runs the SIMT tile; xb, part and the plan are unused.
 // "fast": xb is the (N, K) bf16 operand, 16-byte aligned — x itself when
-// the caller passes it (bf16, no glu), else scratch this call fills first;
-// part: (splits, N, M) f32 scratch when splits > 1, K cut into splits
-// ranges of chunks_per_split 64-element chunks.
+// the caller passes it (bf16, no glu), else scratch this call fills first.
+// dec_blocks > 0 (N <= 16) runs the decode tile on that many persistent
+// blocks, part then the (dec_blocks + M/128 - 1) slots of 128 x BN f32 for
+// its partial sums (ops/mmq_q4_k.py:k1_decode_plan); dec_blocks = 0 runs
+// the tensor-core tile, part then (splits, N, M) f32 scratch when splits >
+// 1, K cut into splits ranges of chunks_per_split 64-element chunks.
 extern "C" int mmq_q4_k_launch(const void* w, const void* x, void* out, void* part,
                                void* xb, int M, int N, int K, int ldx, int x_bf16,
                                int glu, int fast, int splits, int chunks_per_split,
-                               void* stream) {
+                               int dec_blocks, void* stream) {
   if (K % 256 != 0 || M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* wp = static_cast<const uint8_t*>(w);
@@ -91,15 +121,20 @@ extern "C" int mmq_q4_k_launch(const void* w, const void* x, void* out, void* pa
     return static_cast<int>(cudaGetLastError());
   }
   const int chunks = K / KC;   // every split has a chunk
-  if (splits < 1 || chunks_per_split < 1 || (splits - 1) * chunks_per_split >= chunks ||
-      splits * chunks_per_split < chunks)
+  if (dec_blocks > 0 ? N > 16 || static_cast<long long>(dec_blocks) > (M + DEC_ROWS - 1) / DEC_ROWS * (K / 256)
+                     : splits < 1 || chunks_per_split < 1 ||
+                           (splits - 1) * chunks_per_split >= chunks ||
+                           splits * chunks_per_split < chunks)
     return static_cast<int>(cudaErrorInvalidValue);
   launch_to_bf16(x, xb, N, K, ldx, x_bf16, glu, st);
   auto* xbp = static_cast<__nv_bfloat16*>(xb);
   auto* pp = static_cast<float*>(part);
   cudaError_t err;
-  const int per = chunks_per_split;   // tiles as ops/mmq_q4_k.py:tc_tile
-  if (N <= 8) err = launch_tc<8, 1>(wp, xbp, op, pp, M, N, K, splits, per, st);
+  const int per = chunks_per_split;   // tiles as ops/mmq_q4_k.py:tc_tile and dec_tile
+  if (dec_blocks > 0) {
+    if (N <= 8) err = launch_dec<8>(wp, xbp, op, pp, M, N, K, dec_blocks, st);
+    else err = launch_dec<16>(wp, xbp, op, pp, M, N, K, dec_blocks, st);
+  } else if (N <= 8) err = launch_tc<8, 1>(wp, xbp, op, pp, M, N, K, splits, per, st);
   else if (N <= 16) err = launch_tc<16, 1>(wp, xbp, op, pp, M, N, K, splits, per, st);
   else if (N <= 64) err = launch_tc<64, 1>(wp, xbp, op, pp, M, N, K, splits, per, st);
   else err = launch_tc<128, 2>(wp, xbp, op, pp, M, N, K, splits, per, st);

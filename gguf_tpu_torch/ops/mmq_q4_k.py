@@ -8,8 +8,10 @@ output (N, M) float32. Counterpart of `gguf_tpu/ops/mmq_q4_k.py:mmq_q4_k`
 widths, `_kernel_i8` under act_quant); the CUDA sources are
 `gguf_tpu_torch/csrc/mmq_q4_k.cu` (K1) and `mmq_i8.cu` (K7). K1 "fast"
 runs on bf16 tensor cores (wgmma) and K7 on int8 ones (mma.sync), both
-over the TMA-fed tile of `csrc/mmq_tc.cuh`; K1 "high" runs the SIMT f32
-tile of `csrc/kquant.cuh`; K8 (`mmq_q5_k`) runs both tiles too. Their
+over the TMA-fed tile of `csrc/mmq_tc.cuh`, K1 at n <= 16 over its own
+decode tile (`csrc/kquant_dec.cuh`: persistent blocks, the split sum
+inside, `k1_decode_plan`); K1 "high" runs the SIMT f32 tile of
+`csrc/kquant.cuh`; K8 (`mmq_q5_k`) runs both of the older tiles too. Their
 wrappers pick the split of K (`k1_plan`, `split_k`) and allocate its
 scratch; `launch_tc` does the same for the "fast" tensor-core tiles of K2
 (`mmq_q6_k`), K8, K11 (`mmq_legacy`), K12 (`mmq_q2_k`), K13 (`mmq_q3_k`)
@@ -30,7 +32,8 @@ keeps bf16 activations; `linear` and `mlp` pass `MMOpts.act_quant`.
 
 On a CPU tensor the wrappers run the plain PyTorch versions; on a CUDA
 tensor they launch the kernel or raise. `mmq_q4_k.launches` counts K1
-launches and `mmq_i8.launches` K7 launches.
+launches, `mmq_q4_k.decode_launches` those of them on the decode tile, and
+`mmq_i8.launches` K7 launches.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from .activation import GLU_CODES, codes_2d, fake_quant_2d, glu_plain
 
 I8_MAX_N = 16         # the JAX package's n gate for the integer contract
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"mmq_q4_k_launch": [_VP] * 5 + [_I] * 9 + [_VP]}
+_SIG = {"mmq_q4_k_launch": [_VP] * 5 + [_I] * 10 + [_VP]}
 _SIG_I8 = {"mmq_i8_launch": [_VP] * 6 + [_I] * 6 + [_VP]}
 KT = 64             # K elements per step of the SIMT tiles (mmq_common.cuh)
                     # and per chunk of K1's tensor-core tile (mmq_tc.cuh)
@@ -54,6 +57,10 @@ I8_KT = 128         # K elements per chunk of K7 (csrc/mmq_i8.cu)
 KH = 128            # per chunk of K2's and K12's tensor-core tiles
 BM = 64             # output rows per block
 MAX_SPLITS = 8
+SB = 256            # K elements per superblock: a unit of K1's decode tile
+DEC_MAX_N = 16      # K1 "fast" runs its decode tile at n <= 16
+DEC_ROWS = 128      # weight rows per row tile of the decode tile
+DEC_PER_SM = 1      # its persistent blocks per SM
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,11 +114,47 @@ def tc_plan(m: int, n: int, k: int, sms: int) -> tuple:
 
 
 def k1_plan(m: int, n: int, k: int, sms: int) -> tuple:
-    """(splits, chunks per split) of K1's and K8's "fast" tensor-core tile
-    (KT-element chunks, the tile `tc_tile(n)`): 4 blocks per SM asked at
-    decode widths, where its blocks are small and hide latency with more of
-    them, 2 above."""
+    """(splits, chunks per split) of the "fast" tensor-core tile of K8, and
+    of K1 above n = 16 (KT-element chunks, the tile `tc_tile(n)`): 4 blocks
+    per SM asked at decode widths, where its blocks are small and hide
+    latency with more of them, 2 above."""
     return split_k(m, n, k, sms, tc_tile(n), 4 if n <= 16 else 2)
+
+
+def dec_tile(n: int) -> tuple:
+    """(weight rows, activation rows) of a work item of K1's decode tile
+    at n <= DEC_MAX_N (csrc/mmq_q4_k.cu picks the same): two consumer
+    warpgroups of 64 rows, and 8 or 16 activation rows."""
+    return DEC_ROWS, 8 if n <= 8 else 16
+
+
+def k1_decode_plan(m: int, k: int, sms: int) -> tuple:
+    """(persistent blocks, row tiles, superblocks per row) of K1's decode
+    tile: DEC_PER_SM blocks per SM, at most one per unit (a row tile's
+    superblock)."""
+    tiles, sbs = -(-m // DEC_ROWS), k // SB
+    return min(sms * DEC_PER_SM, tiles * sbs), tiles, sbs
+
+
+def k1_decode_items(m: int, k: int, sms: int) -> list:
+    """The decode tile's work, as its blocks walk it: for each block b, its
+    segments (row tile t, first superblock, end superblock) in order. The
+    units (t, superblock) are cut tile-major into equal ranges [b W / G,
+    (b+1) W / G); a segment short of its tile's whole K keeps its partial
+    sums in scratch slot b + t, and the tile's last segment to finish adds
+    them in block order."""
+    blocks, tiles, sbs = k1_decode_plan(m, k, sms)
+    units = tiles * sbs
+    items = []
+    for b in range(blocks):
+        u, hi, segs = b * units // blocks, (b + 1) * units // blocks, []
+        while u < hi:
+            t = u // sbs
+            end = min(hi, (t + 1) * sbs)
+            segs.append((t, u - t * sbs, end - t * sbs))
+            u = end
+        items.append(segs)
+    return items
 
 
 def launch_tc(fn, w: QuantWeight, b: torch.Tensor, fields: list,
@@ -219,8 +262,16 @@ def _mmq_q4_k_float(w: QuantWeight, b: torch.Tensor, precision: str,
     if n == 0:
         return out
     fast = precision == "fast"
-    splits, per = (k1_plan(m, n, k, sm_count(b.device.index or 0))
-                   if fast else (1, 1))
+    sms = sm_count(b.device.index or 0)
+    dec_blocks, splits, per = 0, 1, 1
+    if fast and n <= DEC_MAX_N:
+        dec_blocks, tiles, _ = k1_decode_plan(m, k, sms)
+        part = torch.empty((dec_blocks + tiles - 1, DEC_ROWS * dec_tile(n)[1]),
+                           dtype=torch.float32, device=b.device)
+    else:
+        if fast:
+            splits, per = k1_plan(m, n, k, sms)
+        part = split_scratch(splits, n, m, out)
     # "fast" takes a bf16 (N, K) operand: b itself, or scratch the kernel
     # fills first (bf16(b), or bf16(act(gate) * up) with glu)
     direct = (b.dtype == torch.bfloat16 and glu is None
@@ -228,12 +279,13 @@ def _mmq_q4_k_float(w: QuantWeight, b: torch.Tensor, precision: str,
     xb = b if direct or not fast else torch.empty(
         (n, k), dtype=torch.bfloat16, device=b.device)
     err = _lib().mmq_q4_k_launch(
-        build.ptr(blocks), build.ptr(b), build.ptr(out),
-        build.ptr(split_scratch(splits, n, m, out)), build.ptr(xb), m, n, k,
-        b.shape[1], int(b.dtype == torch.bfloat16), GLU_CODES[glu], int(fast),
-        splits, per, build.stream_ptr())
+        build.ptr(blocks), build.ptr(b), build.ptr(out), build.ptr(part),
+        build.ptr(xb), m, n, k, b.shape[1], int(b.dtype == torch.bfloat16),
+        GLU_CODES[glu], int(fast), splits, per, dec_blocks,
+        build.stream_ptr())
     build.check(err, "mmq_q4_k")
     mmq_q4_k.launches += 1
+    mmq_q4_k.decode_launches += int(dec_blocks > 0)
     return out
 
 
@@ -263,6 +315,7 @@ def mmq_q4_k(w: QuantWeight, b: torch.Tensor, *, precision: str = "high",
 
 
 mmq_q4_k.launches = 0
+mmq_q4_k.decode_launches = 0
 
 
 # ------------------------------------------------- K7: Q8_1 integer MMQ ---

@@ -18,8 +18,9 @@ from gguf_tpu.quant import (dequantize_q4_k, dequantize_q5_k, dequantize_q6_k,
                             quantize_q4_k, quantize_q5_k, quantize_q6_k)
 from gguf_tpu.quant.layouts import to_soa
 from gguf_tpu_torch.ops import MMQ, build, mmq_q4_k, mmq_q5_k, mmq_q6_k
-from gguf_tpu_torch.ops.mmq_q4_k import (KH, KT, dequantize_q4_k_plain,
-                                         k1_plan, split_k, tc_plan, tc_tile)
+from gguf_tpu_torch.ops.mmq_q4_k import (DEC_MAX_N, KH, KT, dec_tile,
+                                         dequantize_q4_k_plain, k1_plan,
+                                         split_k, tc_plan, tc_tile)
 from gguf_tpu_torch.ops.mmq_q5_k import dequantize_q5_k_plain
 from gguf_tpu_torch.ops.mmq_q6_k import dequantize_q6_k_plain
 from gguf_tpu_torch.quant import QuantWeight, concat_m
@@ -165,6 +166,8 @@ def test_tensor_core_tile_widths(n, tile):
 
 _DISPATCH = re.compile(
     r"(?:if \(N <= (\d+)\)|else)\s+err = [\w:]+<(\d+), (\d+)>\(")
+_DEC_DISPATCH = re.compile(
+    r"(?:if \(N <= (\d+)\)|else)\s+err = launch_dec<(\d+)>\(")
 
 
 @pytest.mark.parametrize("source", ["mmq_q4_k.cu", "mmq_q6_k.cu",
@@ -175,15 +178,28 @@ def test_cuda_dispatch_matches_tc_tile(source):
     """The tensor-core launch of K1, K2, K12, K8, K14, K11, K13 and K10 dispatches the
     tile that `tc_tile` (and so the wrappers' split plan) assumes, at
     every width from 1 to 512: (activation rows, warpgroups of 64 weight
-    rows)."""
+    rows); K1's decode tile, which its wrapper runs instead at n <=
+    DEC_MAX_N, the (weight rows, activation rows) of `dec_tile`."""
     with open(os.path.join(build.CSRC_DIR, source)) as f:
-        arms = [(int(lim) if lim else None, int(bn), int(wg))
-                for lim, bn, wg in _DISPATCH.findall(f.read())]
+        text = f.read()
+    arms = [(int(lim) if lim else None, int(bn), int(wg))
+            for lim, bn, wg in _DISPATCH.findall(text)]
     assert [a[0] for a in arms] == [8, 16, 64, None], arms
     for n in range(1, 513):
         bn, wg = next((bn, wg) for lim, bn, wg in arms
                       if lim is None or n <= lim)
         assert (64 * wg, bn) == tc_tile(n), (source, n)
+    dec = [(int(lim) if lim else None, int(bn))
+           for lim, bn in _DEC_DISPATCH.findall(text)]
+    if source != "mmq_q4_k.cu":
+        assert dec == []
+        return
+    assert [a[0] for a in dec] == [8, None], dec
+    assert "dec_blocks > 0 ? N > 16" in text and DEC_MAX_N == 16
+    wgs = int(re.search(r"DEC_WGS = (\d+)", text).group(1))
+    for n in range(1, DEC_MAX_N + 1):
+        bn = next(bn for lim, bn in dec if lim is None or n <= lim)
+        assert (64 * wgs, bn) == dec_tile(n), n
 
 
 # the tensor-core tiles of K2 and K12 "fast": the LM heads (TinyLlama and
@@ -230,7 +246,8 @@ def test_split_plan_of_k8_and_k14(kernel, m, n, k, k8, k14):
 
 
 @pytest.mark.parametrize("m,n,k,tile,per_sm,kt,want", [
-    # K1 "fast" at decode widths asks for 4 blocks per SM
+    # K8 "fast" at decode widths (K1's tile and plan, `k1_plan`) asks for
+    # 4 blocks per SM; K1 itself runs its decode tile there
     (11264, 16, 2048, (64, 16), 4, 64, (3, 11)),
     (2560, 16, 2048, (64, 16), 4, 64, (8, 4)),
     (256, 16, 2048, (64, 16), 4, 64, (8, 4)),     # the Q2_K mix's wv
@@ -245,8 +262,9 @@ def test_split_plan_of_k8_and_k14(kernel, m, n, k, k8, k14):
     *[(m, n, k, tc_tile(n), 2, KH, want) for m, n, k, want in _KH_SHAPES],
 ])
 def test_split_k_of_the_tensor_core_tiles(m, n, k, tile, per_sm, kt, want):
-    """The wrappers' split of K for K1 "fast", K7, K2 and K12 on 132 SMs:
-    every split holds at least one chunk, as the launch functions check."""
+    """The wrappers' split of K for K1 (above n = 16) and K8 "fast", K7,
+    K2 and K12 on 132 SMs: every split holds at least one chunk, as the
+    launch functions check."""
     splits, per = split_k(m, n, k, 132, tile, per_sm, kt)
     assert (splits, per) == want
     chunks = k // kt
